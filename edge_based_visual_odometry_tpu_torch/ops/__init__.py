@@ -1,0 +1,1 @@
+"""Tensor ops and the wrappers of the hand-written CUDA kernels."""

@@ -9,22 +9,30 @@
 // (delta = huber); gradient term -gx*dx + gy*dy; a scalar normal
 // equation; at most max_iter iterations, stopping at |step| < tol.
 //
-// What bounds it on the card: latency of dependent, data-dependent
-// gathers. Each iteration of a candidate reads 98 samples x 4 corners x 3
-// maps scattered around the candidate, then needs three reductions before
-// the next step can start; lanes converge after different numbers of
-// iterations. The three 376x1241 f32 maps (5.6 MB) fit the 50 MB L2, so
-// the gathers hit L2 rather than HBM.
+// What bounds it on the card: instruction issue and latency, not bytes.
+// The work is ~7 kflop per candidate-iteration against ~51 bytes of lane
+// data, but each iteration is ~600 warp instructions (4 sample slots of
+// coordinates, tile clamp, bilinear taps of 3 maps, residual and Huber
+// weight, then 5 butterfly reductions), while the three 376 x 1241 maps
+// (5.6 MB) stay in L2 and the samples of an iteration mostly hit L1.
 //
 // Design: one warp per candidate. The 98 samples are spread over the 32
 // lanes (<= 4 each); the two patch means and H, b, cost are warp-shuffle
 // butterfly reductions, so every lane holds the same scalar state and the
 // warp leaves its loop as soon as its candidate converges - no lane waits
-// for another candidate. The left patches are sampled once. Images are
-// read through __ldg from global memory; every sample is clamped to the
-// T x T atlas tile the reference picks around the candidate (the clamp
-// bounds GN travel, see ops/tiled_sampling.py), left samples to the
-// 32 x 32 tile around the left edge. The kernel runs iterations
+// for another candidate. The 4 sample slots carry no branches (a lane
+// past the samples recomputes sample 0 and adds nothing), so their loads
+// overlap. Each map sample is 4 16-byte `__ldg` gathers of interleaved
+// {right, gx, gy, -} pixels (the first version: 12 4-byte gathers of
+// three planar maps), which mostly hit L1: a candidate's samples stay in
+// one tile.
+// Copying each candidate's tile rows into shared memory first (16-byte
+// `cp.async`, a band of 23 of the 33 rows, 12 KB per warp) was measured
+// slower in every form - one 20-iteration launch, phase 1 and phase 2 -
+// and was taken out: the copy costs ~12 KB of L2 traffic per candidate,
+// and the loop it spares is bound by issue, not by its loads.
+// The left patches are sampled once per candidate with direct gathers
+// from the 32 x 32 tile around the left edge. The kernel runs iterations
 // [it0, it_stop) from per-lane alpha0/active, so `_two_phase` in
 // ops/gauss_newton.py launches it twice with the reference's semantics.
 //
@@ -38,7 +46,7 @@
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;       // candidates per block
 constexpr int NS = 4;          // samples per lane: 2 * P * P <= 32 * NS
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -66,10 +74,11 @@ struct Tap {
   float wc0, wc1, wr0, wr1;
 };
 
-// bilinear taps of (x, y) clamped to the tile at (ox, oy), edge-replicated
-// into the image; weights as the reference's hat-weight contraction
+// bilinear taps of (x, y) clamped to the tile at (ox, oy), as image
+// indices (edge-replicated into the image); weights as the reference's
+// hat-weight contraction
 __device__ __forceinline__ Tap make_tap(float x, float y, float ox, float oy,
-                                        float t1, int H, int W) {
+                                       float t1, int H, int W) {
   const float rx = fminf(fmaxf(sub(x, ox), 0.0f), t1);
   const float ry = fminf(fmaxf(sub(y, oy), 0.0f), t1);
   const float x0 = floorf(rx), y0 = floorf(ry);
@@ -89,27 +98,34 @@ __device__ __forceinline__ Tap make_tap(float x, float y, float ox, float oy,
   return t;
 }
 
-__device__ __forceinline__ float read(const float* __restrict__ m,
-                                      const Tap& t) {
-  return add(mul(t.wr0, add(mul(t.wc0, __ldg(m + t.i00)),
-                            mul(t.wc1, __ldg(m + t.i01)))),
-             mul(t.wr1, add(mul(t.wc0, __ldg(m + t.i10)),
-                            mul(t.wc1, __ldg(m + t.i11)))));
+__device__ __forceinline__ float lerp4(const Tap& t, float v00, float v01,
+                                       float v10, float v11) {
+  return add(mul(t.wr0, add(mul(t.wc0, v00), mul(t.wc1, v01))),
+             mul(t.wr1, add(mul(t.wc0, v10), mul(t.wc1, v11))));
 }
 
-// sample coordinate of patch offset (i, j) around centre (cx, cy)
-__device__ __forceinline__ void patch_xy(float cx, float cy, float ct,
-                                         float st, float i, float j,
-                                         float* px, float* py) {
-  *px = sub(add(cx, mul(ct, i)), mul(st, j));
-  *py = add(add(cy, mul(st, i)), mul(ct, j));
+__device__ __forceinline__ float read_global(const float* __restrict__ m,
+                                             const Tap& t) {
+  return lerp4(t, __ldg(m + t.i00), __ldg(m + t.i01), __ldg(m + t.i10),
+               __ldg(m + t.i11));
+}
+
+// right, gx, gy at one tap of the interleaved {right, gx, gy, -} pixels
+__device__ __forceinline__ void read3(const float4* __restrict__ m,
+                                      const Tap& t, float* rv, float* gx,
+                                      float* gy) {
+  const float4 a = __ldg(m + t.i00);
+  const float4 b = __ldg(m + t.i01);
+  const float4 c = __ldg(m + t.i10);
+  const float4 d = __ldg(m + t.i11);
+  *rv = lerp4(t, a.x, b.x, c.x, d.x);
+  *gx = lerp4(t, a.y, b.y, c.y, d.y);
+  *gy = lerp4(t, a.z, b.z, c.z, d.z);
 }
 
 __global__ void __launch_bounds__(WARPS * 32)
 epipolar_gn_kernel(const float* __restrict__ left,
-                   const float* __restrict__ right,
-                   const float* __restrict__ rgx,
-                   const float* __restrict__ rgy, int H, int W,
+                   const float4* __restrict__ maps4, int H, int W,
                    const float* __restrict__ lx_, const float* __restrict__ ly_,
                    const float* __restrict__ lt_, const float* __restrict__ rx_,
                    const float* __restrict__ ry_,
@@ -117,12 +133,14 @@ epipolar_gn_kernel(const float* __restrict__ left,
                    const float* __restrict__ alpha0,
                    const bool* __restrict__ active, int B, int it0,
                    int it_stop, int max_iter, int P, int tile, int stride,
-                   float tol, float huber, float* __restrict__ out_alpha,
+                   float tol, float huber,
+                   float* __restrict__ out_alpha,
                    float* __restrict__ out_score, float* __restrict__ out_conf,
                    bool* __restrict__ out_valid, int* __restrict__ out_iters,
                    bool* __restrict__ out_done) {
   const int lane = threadIdx.x & 31;
-  const int cand = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int cand = blockIdx.x * (blockDim.x >> 5) + warp;
   if (cand >= B) return;
 
   float alpha = alpha0[cand];
@@ -150,33 +168,42 @@ epipolar_gn_kernel(const float* __restrict__ left,
   const float ct = cosf(lt), st = sinf(lt);
   const float nsx = mul(-st, side), nsy = mul(ct, side);   // normal * side
 
-  // per-lane samples: offsets, patch half (+1 plus / -1 minus)
-  float oi[NS], oj[NS], sgn[NS], lc[NS];
+  const float ox = tile_origin(rx, tile, stride, W);
+  const float oy = tile_origin(ry, tile, stride, H);
+  const float t1 = tile - 1.0f;
+  // per-lane samples: rotated offsets (ct*i, st*j, st*i, ct*j), patch
+  // half (+1 plus / -1 minus)
+  float cti[NS], stj[NS], sti[NS], ctj[NS], sgn[NS], lc[NS];
   bool has[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
-    const int s = lane + 32 * k;
-    has[k] = s < n_samples;
-    const int q = s < pp ? s : s - pp;
-    oi[k] = (float)(q / P - half);
-    oj[k] = (float)(q % P - half);
-    sgn[k] = s < pp ? 1.0f : -1.0f;
+    const int s_ = lane + 32 * k;
+    has[k] = s_ < n_samples;
+    // a lane past the samples computes sample 0 again (and adds nothing),
+    // so its reads stay inside the patch
+    const int q = !has[k] ? 0 : s_ < pp ? s_ : s_ - pp;
+    const float oi = (float)(q / P - half), oj = (float)(q % P - half);
+    cti[k] = mul(ct, oi);
+    stj[k] = mul(st, oj);
+    sti[k] = mul(st, oi);
+    ctj[k] = mul(ct, oj);
+    sgn[k] = s_ < pp ? 1.0f : -1.0f;
   }
 
   // centred left patches (sampled once)
   {
-    const float ox = tile_origin(lx, 32, 8, W), oy = tile_origin(ly, 32, 8, H);
+    const float lox = tile_origin(lx, 32, 8, W);
+    const float loy = tile_origin(ly, 32, 8, H);
     float sp = 0.0f, sm = 0.0f;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      lc[k] = 0.0f;
-      if (!has[k]) continue;
       const float cx = sgn[k] > 0 ? add(lx, nsx) : sub(lx, nsx);
       const float cy = sgn[k] > 0 ? add(ly, nsy) : sub(ly, nsy);
-      float px, py;
-      patch_xy(cx, cy, ct, st, oi[k], oj[k], &px, &py);
-      lc[k] = read(left, make_tap(px, py, ox, oy, 31.0f, H, W));
-      if (sgn[k] > 0) sp = add(sp, lc[k]); else sm = add(sm, lc[k]);
+      const float px = sub(add(cx, cti[k]), stj[k]);
+      const float py = add(add(cy, sti[k]), ctj[k]);
+      lc[k] = read_global(left, make_tap(px, py, lox, loy, 31.0f, H, W));
+      sp = has[k] && sgn[k] > 0 ? add(sp, lc[k]) : sp;
+      sm = has[k] && sgn[k] < 0 ? add(sm, lc[k]) : sm;
     }
     const float mp = mul(warp_sum(sp), inv_pp);
     const float mm = mul(warp_sum(sm), inv_pp);
@@ -184,9 +211,6 @@ epipolar_gn_kernel(const float* __restrict__ left,
     for (int k = 0; k < NS; ++k) lc[k] = sub(lc[k], sgn[k] > 0 ? mp : mm);
   }
 
-  const float ox = tile_origin(rx, tile, stride, W);
-  const float oy = tile_origin(ry, tile, stride, H);
-  const float t1 = tile - 1.0f;
   float score = 1e6f, conf = 0.0f;
   bool valid = false, done = false;
   int iters = 0;
@@ -196,31 +220,27 @@ epipolar_gn_kernel(const float* __restrict__ left,
     float sp = 0.0f, sm = 0.0f;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      rv[k] = gx[k] = gy[k] = 0.0f;
-      if (!has[k]) continue;
       const float cx = sgn[k] > 0 ? add(bx, nsx) : sub(bx, nsx);
       const float cy = sgn[k] > 0 ? add(by, nsy) : sub(by, nsy);
-      float px, py;
-      patch_xy(cx, cy, ct, st, oi[k], oj[k], &px, &py);
-      const Tap t = make_tap(px, py, ox, oy, t1, H, W);
-      rv[k] = read(right, t);
-      gx[k] = read(rgx, t);
-      gy[k] = read(rgy, t);
-      if (sgn[k] > 0) sp = add(sp, rv[k]); else sm = add(sm, rv[k]);
+      const float px = sub(add(cx, cti[k]), stj[k]);
+      const float py = add(add(cy, sti[k]), ctj[k]);
+      read3(maps4, make_tap(px, py, ox, oy, t1, H, W), &rv[k], &gx[k],
+            &gy[k]);
+      sp = has[k] && sgn[k] > 0 ? add(sp, rv[k]) : sp;
+      sm = has[k] && sgn[k] < 0 ? add(sm, rv[k]) : sm;
     }
     const float mp = mul(warp_sum(sp), inv_pp);
     const float mm = mul(warp_sum(sm), inv_pp);
     float Hh = 0.0f, bb = 0.0f, cost = 0.0f;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      if (!has[k]) continue;
       const float r = sub(lc[k], sub(rv[k], sgn[k] > 0 ? mp : mm));
       const float g = add(mul(-gx[k], dx), mul(gy[k], dy));
       const float ar = fabsf(r);
-      const float w = ar <= huber ? 1.0f : mul(__fdiv_rn(1.0f, ar), huber);
-      Hh = add(Hh, mul(mul(w, g), g));
-      bb = add(bb, mul(mul(w, g), r));
-      cost = add(cost, mul(mul(w, r), r));
+      const float w = ar <= huber ? 1.0f : mul(__frcp_rn(ar), huber);
+      Hh = has[k] ? add(Hh, mul(mul(w, g), g)) : Hh;
+      bb = has[k] ? add(bb, mul(mul(w, g), r)) : bb;
+      cost = has[k] ? add(cost, mul(mul(w, r), r)) : cost;
     }
     Hh = warp_sum(Hh);
     bb = warp_sum(bb);
@@ -251,20 +271,21 @@ epipolar_gn_kernel(const float* __restrict__ left,
 
 }  // namespace
 
+// maps4: the (H, W) interleaved {right, gx, gy, any} copy of the right
+// maps (16-byte pixels).
 extern "C" int refine_along_epipolar_launch(
-    const float* left, const float* right, const float* rgx, const float* rgy,
-    int H, int W, const float* lx, const float* ly, const float* lt,
-    const float* rx, const float* ry, const float* epi_dir,
-    const float* alpha0, const bool* active, int B, int it0, int it_stop,
-    int max_iter, int patch_size, int tile, int stride, float tol,
-    float huber, float* alpha, float* score, float* conf, bool* valid,
-    int* iters, bool* done, cudaStream_t stream) {
-  if (2 * patch_size * patch_size > 32 * NS) return (int)cudaErrorInvalidValue;
+    const float* left, const float* maps4, int H, int W, const float* lx,
+    const float* ly, const float* lt, const float* rx, const float* ry,
+    const float* epi_dir, const float* alpha0, const bool* active, int B,
+    int it0, int it_stop, int max_iter, int patch_size, int tile, int stride,
+    float tol, float huber, float* alpha, float* score, float* conf,
+    bool* valid, int* iters, bool* done, cudaStream_t stream) {
+  if (2 * patch_size * patch_size > 32 * NS || tile < 1)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  const int blocks = (B + WARPS - 1) / WARPS;
-  epipolar_gn_kernel<<<blocks, WARPS * 32, 0, stream>>>(
-      left, right, rgx, rgy, H, W, lx, ly, lt, rx, ry, epi_dir, alpha0,
-      active, B, it0, it_stop, max_iter, patch_size, tile, stride, tol,
-      huber, alpha, score, conf, valid, iters, done);
+  epipolar_gn_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+      left, reinterpret_cast<const float4*>(maps4), H, W, lx, ly, lt, rx, ry,
+      epi_dir, alpha0, active, B, it0, it_stop, max_iter, patch_size, tile,
+      stride, tol, huber, alpha, score, conf, valid, iters, done);
   return (int)cudaGetLastError();
 }

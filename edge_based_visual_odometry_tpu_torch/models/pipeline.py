@@ -59,13 +59,24 @@ def _has_distortion(rig: StereoRig) -> bool:
             or any(abs(d) > 0 for d in rig.right.distortion[:4]))
 
 
+def _device(device) -> torch.device:
+    """torch.device(device); a CUDA device where none exists is an error,
+    never a silent run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available; pass "
+            f"device='cpu' to run the plain PyTorch twins on the CPU")
+    return device
+
+
 def build_stereo_step(rig: StereoRig, cfg: VOConfig, device):
     """fn(left, right[, gn_capture]) -> FrameResult; images (H, W) numpy or
     tensors, uint8 or float."""
     if _has_distortion(rig):
         raise NotImplementedError(
             "distorted rigs: device undistort is ROADMAP queue 1 item 5")
-    device = torch.device(device)
+    device = _device(device)
     rig_a = rig_arrays_from_rig(rig, device)
     gather_ry = SM.derive_gather_band(rig, cfg)
 
@@ -93,7 +104,7 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device):
 def build_temporal_step(rig: StereoRig, cfg: VOConfig, device):
     """fn(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t, seed) ->
     TemporalResult; rel_R/rel_t is the predicted KF->CF pose."""
-    rig_a = rig_arrays_from_rig(rig, torch.device(device))
+    rig_a = rig_arrays_from_rig(rig, _device(device))
 
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,
              seed) -> TemporalResult:
@@ -116,11 +127,14 @@ class VOPipeline:
 
     keyframe_policy: "reference" (frame 0 only), "every_frame" (previous
     frame becomes the keyframe) or "adaptive" (re-keyframe when the
-    inlier ratio or quad count drops below its threshold)."""
+    inlier ratio or quad count drops below its threshold).
+
+    device: "cuda" (the default) runs the hand-written kernels and raises
+    where no CUDA device exists; "cpu" runs their plain twins."""
 
     rig: StereoRig
     cfg: VOConfig
-    device: object = "cpu"
+    device: object = "cuda"
     has_gt_disparity: bool = False
     use_gt_pose: bool = False
     keyframe_policy: str = "every_frame"

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under `csrc/` have a plain C interface. At first use they are
-compiled by nvcc for Hopper (`sm_90a`) into one shared library under
+compiled by nvcc for Hopper (`sm_90a`), one process per source in
+parallel, and linked into one shared library under
 `build/torch_kernels/` at the repository root and loaded with ctypes. The
 library name carries a hash of the sources and the nvcc command, so an
 edited source builds anew; deleting the directory forces a rebuild.
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0}
@@ -37,10 +38,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
-    "toed_gradient_field_launch": [_P, _I, _I, _I, _P, _P, _P, _P,
-                                   _P, _P, _P, _P],
-    "refine_along_epipolar_launch": [_P] * 4 + [_I] * 2 + [_P] * 8
-                                    + [_I] * 7 + [_F] * 2 + [_P] * 6 + [_P],
+    "toed_gradient_field_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "refine_along_epipolar_launch": ([_P] * 2 + [_I] * 2 + [_P] * 8
+                                     + [_I] * 7 + [_F] * 2 + [_P] * 7),
 }
 
 _lock = threading.Lock()
@@ -76,20 +76,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log() -> str:
+    """What `-Xptxas=-v` said about each kernel of the built library
+    (registers, shared memory, spills)."""
+    log = library_path().with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
 def _build(out: Path):
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [work / f"{s.stem}.o" for s in _sources()]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(_sources(), objs)]
+        logs = []
+        for s, p in zip(_sources(), procs):
+            msg = "".join(p.communicate())
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name} "
+                                   f"({p.returncode}):\n{msg}")
+            logs.append(f"== {s.name}\n{msg}")
+        tmp = work / out.name
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
         os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def lib() -> ctypes.CDLL:
@@ -104,7 +125,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _I
             _lib = handle
         return _lib
 

@@ -147,14 +147,22 @@ def refine_along_epipolar_plain(left_img, right_img, right_gx, right_gy,
     return RefineResult(alpha, score, conf, valid, iters), done
 
 
+def interleave_maps(right_img, right_gx, right_gy):
+    """(H, W, 4) {right, gx, gy, right} pixels: the layout the CUDA kernel
+    reads, one 16-byte load per pixel (the fourth value only pads it)."""
+    return torch.stack([right_img, right_gx, right_gy, right_img], -1)
+
+
 def refine_along_epipolar_cuda(left_img, right_img, right_gx, right_gy,
                                lx, ly, ltheta, rx, ry, epi_dir, alpha0,
                                active, it0: int, it_stop: int,
                                patch_size: int = 7, max_iter: int = 20,
                                tol: float = 1e-3, huber_delta: float = 1.0,
-                               tile: int = 32):
+                               tile: int = 32, maps4=None):
     """The hand-written kernel (csrc/epipolar_gn.cu): same contract as
-    `refine_along_epipolar_plain`, for CUDA tensors."""
+    `refine_along_epipolar_plain`, for CUDA tensors. `maps4`, if given, is
+    `interleave_maps(right_img, right_gx, right_gy)`, made once for several
+    launches on the same maps; otherwise the launch makes it."""
     dev = lx.device
     if not lx.is_cuda:
         raise ValueError(f"refine_along_epipolar_cuda: needs CUDA tensors, "
@@ -177,11 +185,13 @@ def refine_along_epipolar_cuda(left_img, right_img, right_gx, right_gy,
     valid = torch.empty((B,), dtype=torch.bool, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     done = torch.empty((B,), dtype=torch.bool, device=dev)
+    if maps4 is None:
+        maps4 = interleave_maps(right_img, right_gx, right_gy)
+    CB.require(maps4, "maps4", f32, (H, W, 4), dev)
     lib = CB.lib()
     with torch.cuda.device(dev):
         err = lib.refine_along_epipolar_launch(
-            left_img.data_ptr(), right_img.data_ptr(), right_gx.data_ptr(),
-            right_gy.data_ptr(), H, W,
+            left_img.data_ptr(), maps4.data_ptr(), H, W,
             lx.data_ptr(), ly.data_ptr(), ltheta.data_ptr(), rx.data_ptr(),
             ry.data_ptr(), epi_dir.data_ptr(), alpha0.data_ptr(),
             active.data_ptr(),
@@ -197,13 +207,14 @@ def refine_along_epipolar_cuda(left_img, right_img, right_gx, right_gy,
 
 def refine_along_epipolar(left_img, right_img, right_gx, right_gy, lx, ly,
                           ltheta, rx, ry, epi_dir, alpha0, active, it0: int,
-                          it_stop: int, **kw):
+                          it_stop: int, maps4=None, **kw):
     """1-DoF epipolar GN over lanes (see `refine_along_epipolar_plain`):
-    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    the CUDA kernel for CUDA tensors (`maps4` as there), the plain twin
+    for CPU tensors."""
     args = (left_img, right_img, right_gx, right_gy, lx, ly, ltheta, rx, ry,
             epi_dir, alpha0, active, it0, it_stop)
     if lx.is_cuda:
-        return refine_along_epipolar_cuda(*args, **kw)
+        return refine_along_epipolar_cuda(*args, maps4=maps4, **kw)
     if lx.device.type != "cpu":
         raise ValueError(f"refine_along_epipolar: unsupported device "
                          f"{lx.device}")
@@ -249,12 +260,15 @@ def refine_along_epipolar_batch(left_img, right_img, right_gx, right_gy,
     B = lx.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=lx.device)
+    # the kernel's layout of the maps, made once for both phases
+    maps4 = (interleave_maps(right_img, right_gx, right_gy) if lx.is_cuda
+             else None)
 
     def run(args, delta0, it0, it_stop, act):
         return refine_along_epipolar(
             left_img, right_img, right_gx, right_gy, *args, delta0, act,
-            it0, it_stop, patch_size=patch_size, max_iter=max_iter, tol=tol,
-            huber_delta=huber_delta, tile=tile)
+            it0, it_stop, maps4=maps4, patch_size=patch_size,
+            max_iter=max_iter, tol=tol, huber_delta=huber_delta, tile=tile)
 
     args = tuple(a.contiguous() for a in (lx, ly, ltheta, rx, ry, epi_dir))
     alpha0 = torch.zeros((B,), dtype=torch.float32, device=lx.device)

@@ -16,6 +16,8 @@ Port of `edge_based_visual_odometry_tpu/ops/toed.py`:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,12 @@ __all__ = ["EdgeList", "toed_gradient_field", "toed_gradient_field_plain",
            "toed_nms_subpixel", "extract_edges", "detect_edges"]
 
 HALO = 9
+# The column channel feeding each of the 36 outputs, as the CUDA kernel
+# fixes it (`phase_base(ph) + deriv_ychan(k)` in csrc/toed_gradient_field.cu):
+# per phase the y-filter block (8, 0, 4, 4), per derivative its y-filter.
+KERNEL_ROW_SELECT = np.array(
+    [base + yc for base in (8, 0, 4, 4) for yc in (0, 1, 0, 1, 2, 1, 2, 0, 3)],
+    dtype=np.int32)
 
 
 def _taps(kernel_size: int, sigma: float):
@@ -36,6 +44,21 @@ def _taps(kernel_size: int, sigma: float):
         raise ValueError(f"TOED taps of width {col.shape[1]}; the kernel "
                          f"takes {2 * HALO + 1}")
     return col, sel, row
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_taps(kernel_size: int, sigma: float) -> np.ndarray:
+    """The 12 x 19 column taps then the 36 x 19 row taps as one float32
+    host array, built once per (kernel_size, sigma): the kernel takes
+    them by value in its launch parameters (its constant bank), so no
+    launch copies host memory to the device."""
+    col, sel, row = _taps(kernel_size, sigma)
+    if not np.array_equal(sel, KERNEL_ROW_SELECT):
+        raise ValueError("TOED row_select differs from the channel layout "
+                         "the CUDA kernel fixes")
+    out = np.concatenate([col.ravel(), row.ravel()]).astype(np.float32)
+    out.setflags(write=False)
+    return out
 
 
 def _interleave(phases: torch.Tensor) -> torch.Tensor:
@@ -90,18 +113,14 @@ def toed_gradient_field_cuda(img: torch.Tensor, kernel_size: int = 17,
                          f"{tuple(img.shape)}")
     B, H, W = x.shape
     CB.require(x, "img", torch.float32, (B, H, W), x.device)
-    col, sel, row = _taps(kernel_size, sigma)
-    col = np.ascontiguousarray(col, np.float32)
-    row = np.ascontiguousarray(row, np.float32)
-    sel = np.ascontiguousarray(sel, np.int32)
+    taps = _kernel_taps(kernel_size, float(sigma))
     outs = [torch.empty((B, 2 * H, 2 * W), dtype=torch.float32,
                         device=x.device) for _ in range(4)]
     lib = CB.lib()
     with torch.cuda.device(x.device):
         err = lib.toed_gradient_field_launch(
             x.data_ptr(), B, H, W, *(o.data_ptr() for o in outs),
-            col.ctypes.data, row.ctypes.data, sel.ctypes.data,
-            CB.stream_ptr(x.device))
+            taps.ctypes.data, CB.stream_ptr(x.device))
     CB.check(err, "toed_gradient_field")
     CB.LAUNCHES["toed_gradient_field"] += 1
     return tuple(o[0] for o in outs) if squeeze else tuple(outs)

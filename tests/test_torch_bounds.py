@@ -1,0 +1,64 @@
+"""The bound arithmetic chip_smoke.py reports beside each kernel's time:
+work counted from the shapes (K1) and from the iterations a launch ran
+(K2), and the least time the card needs for it. chip_smoke.py imports
+without CUDA; only its main() needs the card."""
+
+import numpy as np
+import pytest
+
+import chip_smoke as C
+
+
+def test_k1_work_at_production_shape():
+    """Both 376 x 1241 images: 933,232 low-res pixels x (2 x 912 FMA flops
+    + 4 x 65 epilogue flops); 4 bytes in and 16 x 4 bytes out per pixel
+    (the numbers in PERF.md)."""
+    flops, nbytes = C.k1_work(2, 376, 1241)
+    assert flops == 933_232 * 2_084 == 1_944_855_488
+    assert nbytes == 3_732_928 + 59_726_848 == 63_459_776
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] * 1e3 == pytest.approx(29.0277, abs=1e-3)
+
+
+@pytest.mark.parametrize("it0", [0, 2])
+def test_k2_work_from_hand_made_iters(it0):
+    """Four lanes, one inactive; 0 + 1 + 2 + 20 iterations run in the
+    launch. P = 7: 98 samples, 39 flops each for the left patch once per
+    active lane, 98 x 72 + 12 flops per iteration. Bytes: the four
+    376 x 1241 maps once, 33 bytes in and 18 out per lane. The launch's
+    first iteration does not change the count: only iterations run."""
+    iters_run = np.array([0, 1, 2, 20])
+    active = np.array([False, True, True, True])
+    flops, nbytes = C.k2_work(iters_run, active, 7, 376, 1241)
+    assert flops == 3 * 98 * 39 + 23 * (98 * 72 + 12) == 174_030
+    assert nbytes == 4 * 376 * 1241 * 4 + 4 * (33 + 18) == 7_466_060
+    # few iterations over full-size maps: the bytes set the bound
+    assert C.bound(flops, nbytes)["bound_by"] == "bytes"
+
+
+def test_k2_work_at_production_scale_is_flop_bound():
+    """Frame 0's one 20-iteration launch ran 1,199,441 lane-iterations over
+    117,528 active of 131,072 lanes: ~8.9 GFLOP against ~14 MB."""
+    B, n_act = 131_072, 117_528
+    iters_run = np.zeros(B, np.int64)
+    iters_run[:n_act] = 10
+    iters_run[:1_199_441 - 10 * n_act] += 1
+    assert int(iters_run.sum()) == 1_199_441
+    flops, nbytes = C.k2_work(iters_run, np.arange(B) < n_act, 7, 376, 1241)
+    assert flops == n_act * 98 * 39 + 1_199_441 * 7_068 == 8_926_841_004
+    assert nbytes == 7_465_856 + B * 51 == 14_150_528
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] * 1e3 == pytest.approx(133.236, abs=1e-2)
+    # K2 rounds every multiply and add on its own (no FMA): half the rate
+    nf = C.with_bound(1.0, flops, nbytes, fma_free=True)
+    assert nf["bound_ms_no_fma"] == pytest.approx(2 * b["bound_ms"])
+    assert nf["pct_of_bound_no_fma"] == pytest.approx(2 * nf["pct_of_bound"])
+
+
+def test_bound_takes_the_larger_time():
+    b = C.bound(67e9, 3.35e9)          # 1 ms of flops, 1 ms of bytes
+    assert b["bound_ms"] == pytest.approx(1.0)
+    assert C.bound(1e9, 3.35e10)["bound_by"] == "bytes"
+    assert C.bound(67e10, 1e6)["bound_ms"] == pytest.approx(10.0)

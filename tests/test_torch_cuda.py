@@ -88,6 +88,90 @@ def test_gn_kernel_matches_twin_bit_for_bit(dev, frame):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(1, 13, 70), (2, 45, 131), (1, 9, 65),
+                                   (1, 8, 62)])
+def test_toed_kernel_ragged_shapes(dev, shape):
+    """Heights and widths that are not multiples of the 8 x 64 tile or of
+    the 4 columns a thread owns."""
+    img = (np.random.default_rng(1).random(shape) * 255).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    out = T.toed_gradient_field_cuda(x)
+    ref = T.toed_gradient_field_plain(x)
+    torch.cuda.synchronize()
+    for a, b in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+    m = ref[2] > 2.0
+    d = (out[3] - ref[3]).abs()[m]
+    d = torch.minimum(d, 2 * np.pi - d)
+    assert float(torch.quantile(d.double().cpu(), 0.999)) < 1e-3
+
+
+def test_toed_kernel_taps_follow_sigma(dev, frame):
+    """One sigma, then another, then the first again: each launch matches
+    its own twin (the launch taps are cached per sigma)."""
+    x = torch.from_numpy(np.stack(frame[:2]).astype(np.float32)).to(dev)
+    for sigma in (2.0, 1.5, 2.0):
+        out = T.toed_gradient_field_cuda(x, 17, sigma)
+        ref = T.toed_gradient_field_plain(x, 17, sigma)
+        torch.cuda.synchronize()
+        for a, b in zip(out[:3], ref[:3]):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+
+
+def _border_lanes(rng, B, H, W):
+    """Candidates whose tiles clamp at each image border (origins at 0 and
+    at the last atlas step, where the region runs past the image and the
+    edge is replicated), corners, and the interior; random epipolar
+    directions so the patch centre also travels vertically."""
+    u = rng.uniform
+    rx = np.concatenate([u(0, 4, B // 6), u(W - 5, W - 1, B // 6),
+                         u(8, W - 8, B // 6), u(8, W - 8, B // 6),
+                         u(0, 4, B // 12), u(W - 5, W - 1, B // 12)])
+    ry = np.concatenate([u(8, H - 8, B // 6), u(8, H - 8, B // 6),
+                         u(0, 4, B // 6), u(H - 5, H - 1, B // 6),
+                         u(H - 5, H - 1, B // 12), u(0, 4, B // 12)])
+    n = B - rx.shape[0]
+    rx = np.concatenate([rx, u(0, W - 1, n)])
+    ry = np.concatenate([ry, u(0, H - 1, n)])
+    ang = np.where(rng.random(B) < 0.5, 0.0, u(-np.pi, np.pi, B))
+    epi = np.stack([np.cos(ang), np.sin(ang)], -1)
+    lx, ly = u(10, W - 10, B), u(10, H - 10, B)
+    lt = u(-np.pi, np.pi, B)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return [f32(a) for a in (lx, ly, lt, rx, ry, epi)]
+
+
+@pytest.mark.parametrize("patch_size", [7, 5])
+@pytest.mark.parametrize("tile", [32, 48])
+def test_gn_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
+    """The kernel against the twin, bit for bit, at 301 lanes (not a
+    multiple of the warps per block), on candidates clamped at every
+    border; with the interleaved maps made by the launch and passed in."""
+    left, right, _ = frame
+    lf = torch.from_numpy(left.astype(np.float32))
+    rf = torch.from_numpy(right.astype(np.float32))
+    gx, gy = IMG.sobel_gradients(rf)
+    H, W = lf.shape
+    rng = np.random.default_rng(tile + patch_size)
+    B = 301
+    lanes = _border_lanes(rng, B, H, W)
+    args = [a.to(dev).contiguous() for a in (lf, rf, gx, gy, *lanes)]
+    act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
+    alpha0 = torch.from_numpy(rng.uniform(-3, 3, B).astype(np.float32)).to(dev)
+    maps4 = GN.interleave_maps(*args[1:4])
+    for m4 in (None, maps4):
+        for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
+            k = GN.refine_along_epipolar_cuda(
+                *args, alpha0, act, it0, it_stop, patch_size=patch_size,
+                tile=tile, maps4=m4)
+            p = GN.refine_along_epipolar_plain(
+                *args, alpha0, act, it0, it_stop, patch_size=patch_size,
+                tile=tile)
+            torch.cuda.synchronize()
+            for a, b in zip((*k[0], k[1]), (*p[0], p[1])):
+                torch.testing.assert_close(a[act], b[act], rtol=0, atol=0)
+
+
 def test_wrappers_validate_operands(dev):
     x = torch.zeros(2, 40, 50, device=dev)
     with pytest.raises(ValueError):
@@ -104,6 +188,10 @@ def test_wrappers_validate_operands(dev):
     with pytest.raises(ValueError):
         GN.refine_along_epipolar_cuda(*imgs, *lanes, epi[:4], lanes[0], act,
                                       0, 20)
+    with pytest.raises(ValueError):
+        GN.refine_along_epipolar_cuda(*imgs, *lanes, epi, lanes[0], act, 0,
+                                      20, maps4=torch.zeros(40, 50, 3,
+                                                            device=dev))
 
 
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):

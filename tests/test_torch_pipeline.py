@@ -97,3 +97,18 @@ def test_unported_modes_raise():
         PL.VOPipeline(dataclasses.replace(seq.rig, left=cam), cfg)
     with pytest.raises(ValueError):
         PL.VOPipeline(seq.rig, cfg, keyframe_policy="sometimes")
+
+
+def test_default_device_is_cuda_and_needs_a_card(monkeypatch):
+    """VOPipeline runs on the card unless the caller asks for the CPU; with
+    no CUDA device it refuses to start instead of running on the CPU."""
+    field = {f.name: f for f in dataclasses.fields(PL.VOPipeline)}["device"]
+    assert field.default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seq = S.make_sequence(1, 120, 160)
+    cfg = VOConfig(**SMALL)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PL.VOPipeline(seq.rig, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PL.build_temporal_step(seq.rig, cfg, "cuda")
+    assert PL.VOPipeline(seq.rig, cfg, device="cpu").device.type == "cpu"

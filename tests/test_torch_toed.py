@@ -94,3 +94,23 @@ def test_cpu_tensor_takes_the_twin_and_kernel_wrapper_refuses_it(img,
     assert CB.LAUNCHES == before
     with pytest.raises(ValueError):
         T.toed_gradient_field_cuda(torch.from_numpy(img))
+
+
+@pytest.mark.parametrize("sigma", [1.5, 2.0, 2.5])
+def test_kernel_channel_layout_matches_filter_bank(sigma):
+    """The CUDA kernel fixes which column channel feeds each row filter
+    (KERNEL_ROW_SELECT); the filter bank's row_select must agree for every
+    sigma, and the launch taps are the column then the row taps."""
+    col, sel, row = T._taps(17, sigma)
+    np.testing.assert_array_equal(sel, T.KERNEL_ROW_SELECT)
+    taps = T._kernel_taps(17, sigma)
+    assert taps.dtype == np.float32 and not taps.flags.writeable
+    np.testing.assert_array_equal(taps, np.concatenate([col.ravel(),
+                                                        row.ravel()]))
+
+
+def test_kernel_taps_built_once_per_sigma():
+    a = T._kernel_taps(17, 2.0)
+    assert T._kernel_taps(17, 2.0) is a
+    b = T._kernel_taps(17, 1.5)
+    assert b is not a and not np.array_equal(a, b)

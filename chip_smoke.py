@@ -16,9 +16,27 @@ Phases (each passes or exits non-zero):
   5. the port on the CPU (plain twins) vs the port on the GPU (kernels)
      on a small 120x160 sequence;
   6. the production frame: VOPipeline(VOConfig(), every_frame) over the 3
-     frames, with launch counts, workload and pose-error checks.
-Prints a JSON line of per-kernel results (time, bound, % of bound), then
-as the last line {"ok": true, "device": {...}}.
+     frames, with launch counts, workload and pose-error checks, the
+     steps timed by `StageTimer`;
+  7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
+     (in-memory samples, a config dict), every_frame, windowed BA over 3
+     keyframes, dump files on, a checkpoint every 2 frames; then the same
+     frames cut at frame 3 and resumed from the checkpoint, and once more
+     without BA. Checks per frame the kernel launches, mates, quads and
+     pose error, the BA cost series, the ATE with BA against without, the
+     resumed trajectory against the uninterrupted one, and the dump files;
+  8. the evaluation path: 3 frames with GT disparity supervision, GT
+     poses and filter distributions on a rig with small distortion (the
+     frames distorted in numpy with the inverse map), checking the final
+     stereo recall / precision, the temporal rows against floors taken
+     from the reference package's reading at this width, the RANSAC
+     constraint sweep, and K2 bit for bit against its twin on this path's
+     remapped float frames;
+  9. a fourth production frame under `device_trace` (torch.profiler): the
+     kernels of a frame, their time on the card, the card's busy share.
+Prints a JSON line of per-kernel results (time, bound, % of bound, and
+the launches of each driven path), then as the last line
+{"ok": true, "device": {...}}.
 
 The bound of a kernel is the least time the card could take for its
 work: the larger of its operations over the float32 peak and its bytes
@@ -29,7 +47,11 @@ its line also gives the bound at that rate (`bound_ms_no_fma`).
 The counting functions below need no GPU (tests/test_torch_bounds.py).
 """
 
+import dataclasses
+import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +64,19 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # the same units issuing one multiply or one add per lane and clock
 PEAK_FLOPS_NO_FMA = PEAK_FLOPS / 2
+
+# phases 7-8 run `cli.run` with these flags on top of their own (the
+# defaults: the card, VOConfig() as it is)
+CLI_FLAGS = {"device": "cuda"}
+
+# Floors of phase 8's temporal rows. At this width the reference package
+# itself reads 0.9537 after the gather (its window holds ~278 candidates a
+# row and keeps `quad_gather_slots` of them) and 0.8179 / 0.7157 final
+# recall / precision on frames 0 -> 1, and the port on the same mates
+# 0.8198 / 0.7178 (`scripts/torch_parity_eval.py`, CPU); the floors sit
+# 0.04-0.05 below, for the remapped frames and the second frame pair.
+EVAL_TEMPORAL_FLOOR = {"gather_recall": 0.91, "recall": 0.77,
+                       "precision": 0.67}
 
 # K1, per low-res pixel: 12 column + 36 row correlations of 19 taps (one
 # FMA = 2 flops each), and per phase an epilogue of 46 flops for the two
@@ -123,6 +158,16 @@ def with_bound(ms, flops, nbytes, fma_free=False):
     return b
 
 
+def same_lanes(x, y, mask, what):
+    """Fail unless two K2 results (alpha, score, conf, valid, iters, done)
+    are bit-equal on the lanes of `mask`."""
+    for nm, u, v in zip(("alpha", "score", "conf", "valid", "iters", "done"),
+                        x, y):
+        n_bad = int((u != v)[mask].sum())
+        check(n_bad == 0, f"K2 {what}: {nm} differs on {n_bad} of "
+                          f"{int(mask.sum())} active lanes")
+
+
 def u8(a):
     """Production PNG path: integer-valued images."""
     return np.round(a).clip(0, 255).astype(np.uint8)
@@ -136,6 +181,348 @@ def rel_pose_err(tr, f_kf, f_cf):
     return ang, float(np.linalg.norm(tr.t.double().cpu().numpy() - t_gt))
 
 
+def rel_err(Ra, ta, Rb, tb, f_a, f_b):
+    """Error (deg, m) of the relative pose a -> b of two world->cam poses
+    against the synthetic GT of frames f_a -> f_b."""
+    R_est = Rb @ Ra.T
+    t_est = tb - R_est @ ta
+    R_gt = f_b.R @ f_a.R.T
+    t_gt = f_b.t - R_gt @ f_a.t
+    c = (np.trace(R_est @ R_gt.T) - 1) / 2
+    return (float(np.degrees(np.arccos(np.clip(c, -1, 1)))),
+            float(np.linalg.norm(t_est - t_gt)))
+
+
+def rig_config(rig, dataset_type, out_dir):
+    """The CLI's config dict (reference YAML schema) for a StereoRig."""
+    def cam(c):
+        return {"resolution": [c.width, c.height],
+                "intrinsics": [c.fx, c.fy, c.cx, c.cy],
+                "distortion_coefficients": list(c.distortion[:4])}
+    return {"dataset_type": dataset_type, "output_dir": out_dir,
+            "left_camera": cam(rig.left), "right_camera": cam(rig.right),
+            "stereo": {"R21": [list(r) for r in rig.R21],
+                       "T21": list(rig.T21)}}
+
+
+def distort_image(img, cam):
+    """The distorted image whose undistortion gives `img` back (numpy):
+    per distorted pixel, the normalised undistorted point by fixed-point
+    iteration of the forward (k1, k2, p1, p2) model, then a bilinear sample
+    of `img` there."""
+    h, w = img.shape
+    k1, k2, p1, p2 = cam.distortion[:4]
+    jj, ii = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    xd, yd = (jj - cam.cx) / cam.fx, (ii - cam.cy) / cam.fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(10):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        x = (xd - 2.0 * p1 * x * y - p2 * (r2 + 2.0 * x * x)) / radial
+        y = (yd - p1 * (r2 + 2.0 * y * y) - 2.0 * p2 * x * y) / radial
+    sx = np.clip(x * cam.fx + cam.cx, 0, w - 1.001)
+    sy = np.clip(y * cam.fy + cam.cy, 0, h - 1.001)
+    x0, y0 = np.floor(sx).astype(int), np.floor(sy).astype(int)
+    a, b = sx - x0, sy - y0
+    return ((1 - a) * (1 - b) * img[y0, x0] + a * (1 - b) * img[y0, x0 + 1]
+            + (1 - a) * b * img[y0 + 1, x0] + a * b * img[y0 + 1, x0 + 1]
+            ).astype(np.float32)
+
+
+def samples_of(frames_gt, images, disparity=False):
+    """In-memory StereoSamples: GT as cam->world, like every dataset."""
+    from edge_based_visual_odometry_tpu_torch.io.datasets import StereoSample
+    return [StereoSample(left=l, right=r, timestamp=float(k),
+                         gt_R=f.R.T, gt_t=-f.R.T @ f.t, file_idx=k,
+                         left_disparity=f.disparity if disparity else None)
+            for k, (f, (l, r)) in enumerate(zip(frames_gt, images))]
+
+
+def traj_arrays(pipe):
+    return (torch.stack([p.R for p in pipe.trajectory]).double().cpu().numpy(),
+            torch.stack([p.t for p in pipe.trajectory]).double().cpu().numpy())
+
+
+def phase_sequence(seq, images, card, work_dir):
+    """Phase 7. Returns the kernel launches of the main run."""
+    from edge_based_visual_odometry_tpu_torch import cli as CLI
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+
+    n = len(images)
+    frames_gt = seq.frames[:n]
+    samples = samples_of(frames_gt, images)
+
+    def run(tag, **flags):
+        out_dir = os.path.join(work_dir, tag)
+        per_frame = []
+        last = dict(CB.LAUNCHES)
+
+        def on_frame(k, fr, tr):
+            per_frame.append(dict(
+                k=k, mates=int(fr.mates.count),
+                quads=None if tr is None else int(tr.n_quads),
+                launches={nm: CB.LAUNCHES[nm] - last[nm] for nm in last}))
+            last.update(CB.LAUNCHES)
+        flags.setdefault("output_dir", out_dir)
+        res = CLI.run(rig_config(seq.rig, "KITTI", out_dir),
+                      CLI.default_args(keyframe_policy="every_frame",
+                                       **CLI_FLAGS, **flags),
+                      samples, on_frame=on_frame)
+        torch.cuda.synchronize()
+        return res, per_frame
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CB.reset_launch_counts()
+    main_dir = os.path.join(work_dir, "seq_ba")
+    res, per_frame = run("seq_ba", ba_window=3, dump_stereo_pairs=True,
+                         dump_quads=True, record_filter_distributions=True,
+                         checkpoint_dir=os.path.join(work_dir, "ckpt_main"),
+                         checkpoint_every=2)
+    launches = dict(CB.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    pipe = res["pipe"]
+    check(res["frames"] == n and len(per_frame) == n,
+          f"sequence: {res['frames']} frames processed, expected {n}")
+    R, t = traj_arrays(pipe)
+    check(bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          "sequence: non-finite trajectory")
+    for pf in per_frame:
+        k = pf["k"]
+        check(pf["launches"]["toed_gradient_field"] >= 1
+              and pf["launches"]["refine_along_epipolar"] >= 1,
+              f"sequence frame {k}: kernel launches {pf['launches']}")
+        check(pf["mates"] >= 21000,
+              f"sequence frame {k}: mates {pf['mates']} < 21000")
+        if k:
+            check(pf["quads"] >= 500,
+                  f"sequence frame {k}: quads {pf['quads']} < 500")
+            ang, terr = rel_err(R[k - 1], t[k - 1], R[k], t[k],
+                                frames_gt[k - 1], frames_gt[k])
+            check(ang < 0.2 and terr < 0.010,
+                  f"sequence frame {k}: pose error {ang:.4f} deg / "
+                  f"{terr * 1e3:.2f} mm")
+            pf.update(deg=round(ang, 4), mm=round(terr * 1e3, 2))
+    print("sequence frames (mates; quads, deg, mm after BA): "
+          + "; ".join(f"{pf['mates']}" + (f", {pf['quads']}, {pf['deg']}, "
+                                          f"{pf['mm']}" if pf["k"] else "")
+                      for pf in per_frame))
+
+    # BA: at least one solve, each with a finite cost series that ends
+    # below its start and never rises by more than 2% from one iteration
+    # to the next. (The series is the Huber-weighted reprojection term
+    # alone; the step also minimises the landmark prior's term, so once
+    # converged the reprojection term moves up and down in its last digits.)
+    check(len(pipe.ba_info_log) >= 1, "sequence: no BA solve ran")
+    for i, b in enumerate(pipe.ba_info_log):
+        c = np.asarray(b["cost"], np.float64)
+        check(bool(np.isfinite(c).all()), f"BA solve {i}: cost {c}")
+        check(bool(c[-1] <= c[0] and np.all(c[1:] <= c[:-1] * 1.02 + 1e-9)),
+              f"BA solve {i}: cost rises: {c}")
+    ba = res["metrics"]["ba"]
+    print(f"BA: {ba['solves']} solves, mean landmarks {ba['mean_landmarks']:.0f}"
+          f", mean obs {ba['mean_obs']:.0f}, mean_solve_s "
+          f"{ba['mean_solve_s']:.4f}, mean_host_assembly_s "
+          f"{ba['mean_host_assembly_s']:.4f} (solve_s per solve "
+          f"{[round(b['solve_s'], 4) for b in pipe.ba_info_log]}), first/last "
+          f"cost of the last solve {pipe.ba_info_log[-1]['cost'][0]:.5f} / "
+          f"{pipe.ba_info_log[-1]['cost'][-1]:.5f} [{card}]")
+    from edge_based_visual_odometry_tpu_torch.utils import checkpoint as CKPT
+    t_ck = time.perf_counter()
+    CKPT.save_pipeline_state(os.path.join(work_dir, "ckpt_timed"), pipe)
+    t_ck = time.perf_counter() - t_ck
+    ck_mb = os.path.getsize(os.path.join(work_dir, "ckpt_timed",
+                                         "state.npz")) / 1e6
+    print(f"one checkpoint save: {t_ck:.3f} s, state.npz {ck_mb:.1f} MB "
+          f"(compressed) [{card}]")
+
+    # dump files, with the column counts of the reference's formats
+    for k in range(n):
+        lines = open(os.path.join(
+            main_dir, f"finalized_stereo_edge_pairs_frame_{k}.txt")
+        ).read().splitlines()
+        check(len(lines) == per_frame[k]["mates"] + 1
+              and len(lines[1].split()) == 16,
+              f"dump: finalized pairs of frame {k}")
+        fdl = open(os.path.join(main_dir, f"sift_distance_frame_{k}.txt")
+                   ).read().splitlines()
+        check(fdl[2] == "filter_value\tis_GT" and len(fdl) > 3
+              and len(fdl[3].split("\t")) == 2,
+              f"dump: sift_distance of frame {k}")
+        al = open(os.path.join(main_dir, f"ambiguity_sift_frame_{k}.txt")
+                  ).read().splitlines()
+        check(al[2] == "num_candidates" and len(al) > 3,
+              f"dump: ambiguity of frame {k}")
+        if k:
+            ql = open(os.path.join(main_dir, f"quads_frame_{k}.txt")
+                      ).read().splitlines()
+            check(ql[0].startswith(f"# keyframe {k - 1}") and len(ql) > 2
+                  and len(ql[2].split(",")) == 8, f"dump: quads of frame {k}")
+    for name in ("trajectory_tum.txt", "metrics.json"):
+        check(os.path.exists(os.path.join(main_dir, name)), f"no {name}")
+    check(os.path.exists(os.path.join(work_dir, "ckpt_main", "state.npz")),
+          "no checkpoint written")
+
+    # the same frames without BA and without dumps: ATE and frames/s
+    res0, _ = run("seq_plain")
+    ate, ate0 = res["metrics"]["ate_rmse"], res0["metrics"]["ate_rmse"]
+    check(ate <= 1.5 * ate0 + 1e-4,
+          f"ATE with BA {ate:.5f} m > 1.5 x {ate0:.5f} m without")
+    print(f"sequence of {n} frames {'x'.join(map(str, images[0][0].shape))}: "
+          f"{res0['metrics']['frames_per_s']:.3f} frames/s without BA or "
+          f"dumps, {res['metrics']['frames_per_s']:.3f} frames/s with BA "
+          f"window 3, dumps and checkpoints; ATE {ate0:.5f} m without BA, "
+          f"{ate:.5f} m with; peak device memory {peak_gib:.2f} GiB "
+          f"[{card}]")
+
+    # cut at frame 3, then resume from the checkpoint to the end
+    ck = os.path.join(work_dir, "ckpt_cut")
+    cut = dict(ba_window=3, checkpoint_dir=ck, checkpoint_every=2,
+               output_dir=os.path.join(work_dir, "seq_resumed"))
+    run("seq_resumed", max_frames=3, **cut)
+    res2, pf2 = run("seq_resumed", **cut)
+    check([p["k"] for p in pf2] == list(range(3, n)),
+          f"resume: frames {[p['k'] for p in pf2]} ran")
+    R2, t2 = traj_arrays(res2["pipe"])
+    check(R2.shape == R.shape, "resume: trajectory length")
+    diff = max(float(np.abs(R2 - R).max()), float(np.abs(t2 - t).max()))
+    # the BA's scatter-adds have no fixed order on the card, so two runs
+    # may differ in the last bits: equal within 1e-5
+    check(diff <= 1e-5, f"resume: trajectory differs by {diff:.3g}")
+    print(f"resume from frame 3: trajectory "
+          f"{'bit-equal to' if diff == 0.0 else f'within {diff:.3g} of'} "
+          f"the uninterrupted run's")
+    return launches
+
+
+def phase_evaluation(seq, card, work_dir, dev):
+    """Phase 8. Returns its kernel launches."""
+    from edge_based_visual_odometry_tpu_torch import cli as CLI
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+    from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
+    from edge_based_visual_odometry_tpu_torch.models.types import (
+        rig_arrays_from_rig)
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import image as IMG
+
+    cam = dataclasses.replace(seq.rig.left,
+                              distortion=(-0.02, 0.004, 0.0003, -0.0002))
+    rig = dataclasses.replace(seq.rig, left=cam, right=cam)
+    frames_gt = seq.frames[:3]
+    images = [(distort_image(f.left, cam), distort_image(f.right, cam))
+              for f in frames_gt]
+
+    # the device remap against the same remap on the CPU, and against the
+    # frame that was distorted (interior)
+    K = torch.as_tensor(cam.K, dtype=torch.float32)
+    d = torch.tensor(cam.distortion[:4], dtype=torch.float32)
+    img = torch.from_numpy(images[0][0])
+    und = IMG.undistort(img.to(dev), K.to(dev), d.to(dev)).cpu()
+    err = float((und - IMG.undistort(img, K, d)).abs().max())
+    back = float(np.abs(und.numpy() - frames_gt[0].left)[16:-16, 16:-16]
+                 .mean())
+    check(err < 1e-2, f"undistort: card vs CPU differ by {err:.3g} gray")
+    check(back < 1.0, f"undistort: mean {back:.3g} gray from the clean frame")
+
+    rig_a = rig_arrays_from_rig(rig, dev)
+    sweeps, prev = [], {}
+
+    def on_frame(k, fr, tr):
+        if tr is not None:
+            pq = MT.lift_quads(prev["fr"].mates, tr.quads, rig_a, pipe_cfg,
+                               use_gt=True)
+            sweeps.append(MT.constraint_sweep_metrics(
+                pq, pipe_cfg, pipe_cfg.ransac_seed + k).cpu().numpy())
+        prev["fr"] = fr
+
+    out_dir = os.path.join(work_dir, "eval")
+    args = CLI.default_args(**CLI_FLAGS, use_gt_pose=True,
+                            record_filter_distributions=True,
+                            output_dir=out_dir)
+    pipe_cfg = CLI.vo_config_from_args(args)
+    CB.reset_launch_counts()
+    res = CLI.run(rig_config(rig, "ETH3D_stereo", out_dir), args,
+                  samples_of(frames_gt, images, disparity=True),
+                  on_frame=on_frame)
+    torch.cuda.synchronize()
+    launches = dict(CB.LAUNCHES)
+    pipe = res["pipe"]
+
+    # K2 on this path's input: the stage-9 operands of frame 0, made from
+    # remapped (float-valued) images under GT supervision, through the
+    # kernel and through its plain twin, bit for bit
+    cap = {}
+    PL.build_stereo_step(rig, pipe_cfg, dev, has_gt=True)(
+        *images[0], frames_gt[0].disparity,
+        np.full(images[0][0].shape, 255.0, np.float32), gn_capture=cap)
+    a, kw = cap["args"], cap["kwargs"]
+    act = kw["active"]
+    frac = float((a[1] != a[1].round()).float().mean())
+    check(frac > 0.5, f"evaluation: {frac:.2f} of the right image is "
+                      f"non-integer; the remap did not run")
+    gn_kw = dict(patch_size=kw["patch_size"], max_iter=kw["max_iter"],
+                 tol=kw["tol"], huber_delta=kw["huber_delta"], tile=kw["tile"])
+    alpha0 = torch.zeros(act.shape[0], device=dev)
+    rk, dk = GN.refine_along_epipolar_cuda(*a, alpha0, act, 0, kw["max_iter"],
+                                           **gn_kw)
+    rp, dp = GN.refine_along_epipolar_plain(*a, alpha0, act, 0,
+                                            kw["max_iter"], **gn_kw)
+    same_lanes((*rk, dk), (*rp, dp), act, "evaluation frame, one launch")
+    same_lanes(GN.refine_along_epipolar_batch(*a, **kw),
+               GN._two_phase(
+                   lambda args, d0, it0, it_stop, active:
+                   GN.refine_along_epipolar_plain(*a[:4], *args, d0, active,
+                                                  it0, it_stop, **gn_kw),
+                   act.shape[0], tuple(t.contiguous() for t in a[4:]), act,
+                   alpha0, phase1_iters=kw["phase1_iters"],
+                   phase2_budget=kw["phase2_budget"], max_iter=kw["max_iter"],
+                   chunk=kw["chunk"]),
+               act, "evaluation frame, two phases")
+    print(f"K2 on the evaluation path's stage-9 input ({int(act.sum())} "
+          f"active lanes, {frac:.2f} of the right image non-integer): "
+          f"bit-equal to its twin, as one launch and as two phases")
+    check(len(pipe.stereo_metrics_log) == 3
+          and len(pipe.temporal_metrics_log) == 2, "evaluation: logs")
+    for k, rows in enumerate(pipe.stereo_metrics_log):
+        check(rows.shape == (len(SM.STAGE_NAMES), 4)
+              and bool(np.isfinite(rows).all()), f"eval frame {k}: rows")
+        rec, prec = float(rows[-1, 0]), float(rows[-1, 1])
+        check(rec >= 0.9 and prec >= 0.95,
+              f"eval frame {k}: final recall {rec:.4f} precision {prec:.4f}")
+    for k, rows in enumerate(pipe.temporal_metrics_log):
+        check(bool(np.isfinite(rows).all()), f"eval: temporal rows {rows}")
+        (g_rec, _), (rec, prec) = rows[0, :2], rows[-1, :2]
+        check(g_rec >= EVAL_TEMPORAL_FLOOR["gather_recall"]
+              and rec >= EVAL_TEMPORAL_FLOOR["recall"]
+              and prec >= EVAL_TEMPORAL_FLOOR["precision"],
+              f"eval frame {k + 1}: temporal recall after the gather "
+              f"{g_rec:.4f}, final recall {rec:.4f} precision {prec:.4f}, "
+              f"floors {EVAL_TEMPORAL_FLOOR}")
+    check(len(sweeps) == 2, "evaluation: constraint sweeps")
+    for sw in sweeps:
+        check(sw.shape == (5, 3) and bool(np.isfinite(sw).all())
+              and bool(np.all((sw[:, :2] >= 0) & (sw[:, :2] <= 1))),
+              f"constraint sweep rows {sw}")
+    for name in ("ncc_frame_0.txt", "matching_edge_clusters_data_frame_0.txt",
+                 "photo_refine_data_from_evaluation_statistics_frame_2.txt",
+                 "false_negative_edge_clusters_frame_1.txt"):
+        check(os.path.exists(os.path.join(out_dir, name)), f"eval: no {name}")
+    fin = np.mean(np.stack(pipe.stereo_metrics_log), 0)[-1]
+    tfin = np.mean(np.stack(pipe.temporal_metrics_log), 0)[-1]
+    print(f"evaluation, 3 frames {'x'.join(map(str, images[0][0].shape))}, "
+          f"distorted rig undistorted on the "
+          f"device (card vs CPU remap {err:.2g} gray): final stereo recall "
+          f"{fin[0]:.4f} precision {fin[1]:.4f}; final temporal recall "
+          f"{tfin[0]:.4f} precision {tfin[1]:.4f}; constraint sweep "
+          f"(recall, precision) after all gates "
+          f"{[tuple(round(float(v), 4) for v in sw[-1, :2]) for sw in sweeps]}; ATE "
+          f"{res['metrics']['ate_rmse']:.5f} m [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -145,6 +532,7 @@ def main():
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
     from edge_based_visual_odometry_tpu_torch.ops import toed
+    from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -168,8 +556,10 @@ def main():
             print("ptxas: " + ln.strip())
 
     H, W = 376, 1241
-    seq = S.make_sequence(n_frames=3, h=H, w=W)
-    frames = [(u8(f.left), u8(f.right)) for f in seq.frames]
+    N_SEQ = 6            # frames of phase 7; phases 3-6 use the first 3
+    seq = S.make_sequence(n_frames=N_SEQ, h=H, w=W)
+    seq_images = [(u8(f.left), u8(f.right)) for f in seq.frames]
+    frames = seq_images[:3]
     cfg = VOConfig()
     kernels = []
 
@@ -223,20 +613,13 @@ def main():
     gn_kw = dict(patch_size=P, max_iter=max_iter, tol=kw["tol"],
                  huber_delta=kw["huber_delta"], tile=kw["tile"])
 
-    def same(x, y, mask, what):
-        for nm, u, v in zip(("alpha", "score", "conf", "valid", "iters",
-                             "done"), x, y):
-            n_bad = int((u != v)[mask].sum())
-            check(n_bad == 0, f"K2 {what}: {nm} differs on {n_bad} of "
-                              f"{int(mask.sum())} active lanes")
-
     rp, dp = GN.refine_along_epipolar_plain(*a, alpha0, act, 0, max_iter,
                                             **gn_kw)
     rk, dk = GN.refine_along_epipolar_cuda(*a, alpha0, act, 0, max_iter,
                                            **gn_kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(rk.delta[act]).all()), "K2 alpha not finite")
-    same((*rk, dk), (*rp, dp), act, f"one {max_iter}-iteration launch")
+    same_lanes((*rk, dk), (*rp, dp), act, f"one {max_iter}-iteration launch")
     err_k2 = float((rk.delta - rp.delta).abs()[act].max())
 
     # the pipeline's two phases, recording each launch's operands; the
@@ -263,8 +646,8 @@ def main():
                         lanes, act, alpha0, **phase_kw)
     r2b = GN.refine_along_epipolar_batch(*a, **kw)
     torch.cuda.synchronize()
-    same(r2k, r2p, act, "two phases")
-    same(r2k, r2b, act, "two phases vs refine_along_epipolar_batch")
+    same_lanes(r2k, r2p, act, "two phases")
+    same_lanes(r2k, r2b, act, "two phases vs refine_along_epipolar_batch")
     check(len(calls_k) == 2, f"K2: {len(calls_k)} launches for two phases")
 
     # timing: each form on the interleaved maps; bound from the iterations
@@ -338,33 +721,27 @@ def main():
     # ---- 6. the production frame through VOPipeline ----
     pipe = PL.VOPipeline(seq.rig, cfg, device=dev,
                          keyframe_policy="every_frame")
-    step_ms = {}
-
-    def timed(fn, key):
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            step_ms[key] = (time.perf_counter() - t) * 1e3
-            return out
-        return wrapped
-
-    pipe._stereo_step = timed(pipe._stereo_step, "stereo")
-    pipe._temporal_step = timed(pipe._temporal_step, "temporal")
-    pipe._temporal_step_boot = timed(pipe._temporal_step_boot, "temporal")
+    # StageTimer.timed waits for the card before and after each step
+    timer = TIM.StageTimer()
+    pipe._stereo_step = functools.partial(timer.timed, "stereo step",
+                                          pipe._stereo_step)
+    pipe._temporal_step = functools.partial(timer.timed, "temporal step",
+                                            pipe._temporal_step)
+    pipe._temporal_step_boot = functools.partial(
+        timer.timed, "temporal step", pipe._temporal_step_boot)
     torch.cuda.synchronize()
     CB.reset_launch_counts()
     per_frame = []
     for k, (l, r) in enumerate(frames):
         before = dict(CB.LAUNCHES)
-        step_ms.clear()
         t = time.perf_counter()
         fr, tr = pipe.run_frame(l, r)
         torch.cuda.synchronize()
         frame_ms = (time.perf_counter() - t) * 1e3
+        step_ms = {nm.split()[0]: ts[-1] * 1e3
+                   for nm, ts in timer.times.items()}
         per_frame.append((fr, tr, {n: CB.LAUNCHES[n] - before[n]
-                                   for n in before}, dict(step_ms), frame_ms))
+                                   for n in before}, step_ms, frame_ms))
     launches = dict(CB.LAUNCHES)
 
     record = []
@@ -406,10 +783,42 @@ def main():
           f"{'equals' if record == pr1 else 'differs from'} the first "
           f"port's {pr1}")
 
+    print(timer.report())
+
+    # ---- 7, 8. the sequence path and the evaluation path ----
+    work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    by_path = {"frame": launches,
+               "sequence": phase_sequence(seq, seq_images, card, work_dir),
+               "evaluation": phase_evaluation(seq, card, work_dir, dev)}
+
+    # last, one more frame under torch.profiler: the kernels of a frame,
+    # their time on the card, and the share of the frame's wall time they
+    # fill (the profiler's own cost is in that wall time; it runs after
+    # every timed phase, so that it cannot touch their times)
+    with TIM.device_trace(os.path.join(work_dir, "trace")) as prof:
+        t = time.perf_counter()
+        pipe.run_frame(*seq_images[3])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    check(dev_ms > 0, "traced frame 3: the profiler saw no device time")
+    print(f"traced frame 3: {sum(e.count for e in on_card)} kernels and "
+          f"copies, {dev_ms:.1f} ms on the card in {traced_ms:.1f} ms of "
+          f"wall time under the profiler (busy share "
+          f"{dev_ms / traced_ms:.2f}) [{card}]")
+    shutil.rmtree(work_dir, ignore_errors=True)
+
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
         kd["launches_per_frame"] = kd["launches"] / len(frames)
-        check(kd["launches"] >= 1, f"{kd['name']} not launched on the main path")
+        kd["launches_by_path"] = {p: c[kd["name"]] for p, c in by_path.items()}
+        for path, c in by_path.items():
+            check(c[kd["name"]] >= 1,
+                  f"{kd['name']} not launched on the {path} path")
     for kd in kernels:
         kd["card"] = card
         # bound_us and limiter ("flops" | "bytes") restate bound_ms and
@@ -425,7 +834,7 @@ def main():
             "flops", "bytes", "card")}
         | {k: v for k, v in kd.items() if k in (
             "bound_ms_no_fma", "pct_of_bound_no_fma", "maps_interleave_ms",
-            "values_not_bit_equal", "forms")}
+            "values_not_bit_equal", "forms", "launches_by_path")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

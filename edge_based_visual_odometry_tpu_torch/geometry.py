@@ -1,9 +1,9 @@
 """Projective / epipolar geometry as batched torch functions.
 
-Port of `edge_based_visual_odometry_tpu/geometry.py`, restricted to what the
-production frame calls: pose algebra, epipolar lines and distances, rays,
-two-ray backprojection, 3D tangents, orientation gates, skew and so3_exp.
-All functions broadcast over leading batch dims and keep the reference's
+Port of `edge_based_visual_odometry_tpu/geometry.py`: pose algebra,
+quaternions, epipolar lines and distances, rays, two-ray backprojection, 3D
+tangents, linear triangulation, orientation gates, skew and so3_exp. All
+functions broadcast over leading batch dims and keep the reference's
 operation order.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -33,9 +34,21 @@ class Pose(NamedTuple):
     def rotate(self, p: torch.Tensor) -> torch.Tensor:
         return torch.einsum("...ij,...j->...i", self.R, p)
 
+    def detransform(self, p: torch.Tensor) -> torch.Tensor:
+        """R^T @ (p - t)."""
+        return torch.einsum("...ji,...j->...i", self.R, p - self.t)
+
+    def inverse(self) -> "Pose":
+        Rt = self.R.transpose(-1, -2)
+        return Pose(Rt, -torch.einsum("...ij,...j->...i", Rt, self.t))
+
     def compose(self, other: "Pose") -> "Pose":
         """self . other: first apply `other`, then `self`."""
         return Pose(self.R @ other.R, self.rotate(other.t) + self.t)
+
+    def center(self) -> torch.Tensor:
+        """Camera centre in the source frame, -R^T t."""
+        return -torch.einsum("...ji,...j->...i", self.R, self.t)
 
 
 def relative_pose(source: Pose, target: Pose) -> Pose:
@@ -63,6 +76,43 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     th = theta[..., None]
     I = torch.eye(3, dtype=w.dtype, device=w.device)
     return I + torch.sin(th) * kx + (1 - torch.cos(th)) * (kx @ kx)
+
+
+def quat_to_R(q: torch.Tensor) -> torch.Tensor:
+    """(qw, qx, qy, qz) -> rotation matrix; normalizes first."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def R_to_quat(R) -> np.ndarray:
+    """Rotation matrix -> (qw, qx, qy, qz); host-side numpy (trajectory
+    IO). Takes an array or a tensor on any device."""
+    if hasattr(R, "detach"):
+        R = R.detach().cpu().numpy()
+    R = np.asarray(R, dtype=np.float64)
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        return np.array(
+            [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
+        )
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
+    q = np.empty(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q
 
 
 def epipolar_lines(F: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -146,8 +196,59 @@ def project(K, p):
     return uvw[..., :2] / uvw[..., 2:3]
 
 
+def two_view_linear_triangulation(gamma1_px, gamma2_px, K1_inv, K2_inv, R, T):
+    """Linear two-view triangulation of (..., 2) pixel pairs: the 4x4 DLT
+    system solved as its inhomogeneous 3x3 normal equations (last
+    coordinate fixed to 1). Returns (..., 3) points in view-1 coordinates."""
+    g1 = pixel_to_ray(K1_inv, gamma1_px)
+    g2 = pixel_to_ray(K2_inv, gamma2_px)
+    zeros = torch.zeros_like(g1[..., 0])
+    ones = torch.ones_like(zeros)
+    y2, x2 = g2[..., 1], g2[..., 0]
+    r0 = torch.stack([zeros, -ones, g1[..., 1], zeros], -1)
+    r1 = torch.stack([ones, zeros, -g1[..., 0], zeros], -1)
+    r2 = torch.stack([y2 * R[2, 0] - R[1, 0], y2 * R[2, 1] - R[1, 1],
+                      y2 * R[2, 2] - R[1, 2], y2 * T[2] - T[1]], -1)
+    r3 = torch.stack([R[0, 0] - x2 * R[2, 0], R[0, 1] - x2 * R[2, 1],
+                      R[0, 2] - x2 * R[2, 2], T[0] - x2 * T[2]], -1)
+    A = torch.stack([r0, r1, r2, r3], -2)               # (..., 4, 4)
+    M = A[..., :3]
+    b = -A[..., 3]
+    AtA = torch.einsum("...ki,...kj->...ij", M, M)
+    Atb = torch.einsum("...ki,...k->...i", M, b)
+    return torch.linalg.solve(AtA, Atb)
+
+
+def multiview_linear_triangulation(pts_px, Rs, Ts, K_inv):
+    """N-view linear triangulation. pts_px: (N, 2) pixels; Rs/Ts: (N-1, 3,
+    3)/(N-1, 3) poses of views 2..N relative to view 1 (identity). Returns
+    the (3,) point in view-1 coordinates."""
+    g = pixel_to_ray(K_inv, pts_px)                     # (N, 3)
+    z = torch.zeros((), dtype=g.dtype, device=g.device)
+    one = torch.ones((), dtype=g.dtype, device=g.device)
+    rows = [torch.stack([z, -one, g[0, 1], z]),
+            torch.stack([one, z, -g[0, 0], z])]
+    for p in range(Rs.shape[0]):
+        Rp, Tp, mp = Rs[p], Ts[p], g[p + 1]
+        rows.append(torch.stack([mp[1] * Rp[2, 0] - Rp[1, 0],
+                                 mp[1] * Rp[2, 1] - Rp[1, 1],
+                                 mp[1] * Rp[2, 2] - Rp[1, 2],
+                                 mp[1] * Tp[2] - Tp[1]]))
+        rows.append(torch.stack([Rp[0, 0] - mp[0] * Rp[2, 0],
+                                 Rp[0, 1] - mp[0] * Rp[2, 1],
+                                 Rp[0, 2] - mp[0] * Rp[2, 2],
+                                 Tp[0] - mp[0] * Tp[2]]))
+    A = torch.stack(rows, 0)
+    M, b = A[:, :3], -A[:, 3]
+    return torch.linalg.solve(M.T @ M, M.T @ b)
+
+
 def rad2deg(x):
     return x * (180.0 / math.pi)
+
+
+def deg2rad(x):
+    return x * (math.pi / 180.0)
 
 
 def orientation_diff_deg(theta1, theta2):

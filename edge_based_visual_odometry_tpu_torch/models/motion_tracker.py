@@ -1,7 +1,6 @@
 """Relative pose from quad pairs: constraint-gated 2-point RANSAC.
 
-Port of `edge_based_visual_odometry_tpu/models/motion_tracker.py` (no-GT
-path): quads lifted to (Gamma, Gamma_bar, T, T_bar) in PROSAC order, all
+Port of `edge_based_visual_odometry_tpu/models/motion_tracker.py`: quads lifted to (Gamma, Gamma_bar, T, T_bar) in PROSAC order, all
 hypotheses drawn at once, gated by the 4 rigid-invariance constraints,
 solved by closed-form triad alignment, prescored on the top quads, scored
 in full for the best `ransac_prescore_keep`, then polished by inlier GN.
@@ -50,11 +49,12 @@ class RansacResult(NamedTuple):
 
 
 def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
-               cfg: VOConfig) -> PoseQuads:
+               cfg: VOConfig, use_gt: bool = False) -> PoseQuads:
     """Lift every (KF mate, candidate) pair and order PROSAC style by
     (row candidate count, flat position), keeping the first
     max_pose_quads. The LEFT K inverse serves both cameras, as in the
-    reference."""
+    reference. With `use_gt` only true-positive KF mates take part and
+    `is_veridical` flags the quads within the GT distance on both sides."""
     M, Cq = quads.cmask.shape
     Kinv = rig.K_left_inv
     g1l = geom.pixel_to_ray(Kinv, torch.stack([kf.left_x, kf.left_y], -1))
@@ -70,7 +70,8 @@ def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
         rig.R21, gbl, gbr, geom.theta_to_ray_tangent(Kinv, quads.lct),
         geom.theta_to_ray_tangent(Kinv, quads.rct))
 
-    mask = quads.cmask & quads.row_mask[:, None]
+    row_ok = quads.row_mask & kf.is_tp if use_gt else quads.row_mask
+    mask = quads.cmask & row_ok[:, None]
     n_cand_row = mask.sum(1)
     Q = min(cfg.max_pose_quads, M * Cq)
     # stable counting-sort order: (class, flat position), masked-out last
@@ -85,12 +86,21 @@ def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
         return a.reshape(M * Cq, *a.shape[2:])[order]
 
     valid = flat(mask) & sel_ok
+    if use_gt:
+        dl = torch.sqrt((quads.lcx - quads.proj_left[:, 0:1]) ** 2
+                        + (quads.lcy - quads.proj_left[:, 1:2]) ** 2)
+        dr = torch.sqrt((quads.rcx - quads.proj_right[:, 0:1]) ** 2
+                        + (quads.rcy - quads.proj_right[:, 1:2]) ** 2)
+        is_veridical = flat(quads.cmask & (dl < cfg.dist_to_gt_thresh_quads)
+                            & (dr < cfg.dist_to_gt_thresh_quads)) & valid
+    else:
+        is_veridical = torch.zeros_like(valid)
     return PoseQuads(
         gamma=flat(Gamma[:, None].expand(M, Cq, 3)),
         gamma_bar=flat(Gamma_bar), tangent=flat(T[:, None].expand(M, Cq, 3)),
         tangent_bar=flat(T_bar),
         cf_left=flat(torch.stack([quads.lcx, quads.lcy], -1)),
-        valid=valid, is_veridical=torch.zeros_like(valid),
+        valid=valid, is_veridical=is_veridical,
         n_valid=valid.sum().to(torch.int32))
 
 
@@ -123,8 +133,8 @@ def _sample_quad_pairs(pq: PoseQuads, cfg: VOConfig, seed: int, K: int,
         idx2 = torch.randint(0, 1 << 30, (K,), generator=gen, device=dev) % top_n
         idx2 = torch.where(idx2 == idx1, (idx2 + 1) % top_n, idx2)
     else:
-        idx1, idx2 = (torch.as_tensor(i, dtype=torch.int64,
-                                      device=pq.gamma.device) for i in idx)
+        idx1, idx2 = (torch.as_tensor(i).to(pq.gamma.device, torch.int64)
+                      for i in idx)
     samples = (pq.gamma[idx1], pq.gamma_bar[idx1], pq.tangent[idx1],
                pq.tangent_bar[idx1], pq.gamma[idx2], pq.gamma_bar[idx2],
                pq.tangent[idx2], pq.tangent_bar[idx2])
@@ -146,6 +156,36 @@ def _constraint_gates(samples, cfg: VOConfig):
     c4 = torch.abs(torch.abs((t1 * t2).sum(-1))
                    - torch.abs((tb1 * tb2).sum(-1))) < cfg.tau_c4
     return c1, c2, c3, c4
+
+
+CONSTRAINT_STAGE_NAMES = (
+    "Baseline", "Normalized Length Constraint", "T1 Angle Similarity Constraint",
+    "T2 Angle Similarity Constraint", "Tangent Angle Similarity Constraint",
+)
+
+
+def constraint_sweep_metrics(pq: PoseQuads, cfg: VOConfig,
+                             seed: Optional[int] = None, idx=None):
+    """Diagnostic recall / precision of the 4 RANSAC constraint gates over
+    the quad pairs RANSAC would draw, against `pq.is_veridical` (evaluation
+    mode). Returns (5, 3) rows [recall, precision, surviving veridical
+    pairs] aligned with CONSTRAINT_STAGE_NAMES; `idx` = (idx1, idx2)
+    injects the draws."""
+    K = cfg.ransac_max_iterations
+    idx1, idx2, samples = _sample_quad_pairs(
+        pq, cfg, cfg.ransac_seed if seed is None else seed, K, idx)
+    ver = pq.is_veridical[idx1] & pq.is_veridical[idx2]
+    init_ver = ver.sum()
+    surviving = torch.ones_like(ver)
+    rows = []
+    for g in (torch.ones_like(ver), *_constraint_gates(samples, cfg)):
+        surviving = surviving & g
+        n_ver = (surviving & ver).sum()
+        rows.append(torch.stack([
+            n_ver / torch.clamp(init_ver, min=1),
+            n_ver / torch.clamp(surviving.sum(), min=1),
+            n_ver.to(torch.float32)]))
+    return torch.stack(rows)
 
 
 def _inlier_counts(KG, Kt, gamma, cf_left, valid, thresh):

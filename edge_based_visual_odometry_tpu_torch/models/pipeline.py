@@ -1,18 +1,21 @@
 """Frame-level VO pipeline: the stereo step, the temporal step, the
 per-frame loop.
 
-Port of `edge_based_visual_odometry_tpu/models/pipeline.py` for the
-production frame:
+Port of `edge_based_visual_odometry_tpu/models/pipeline.py`:
 
-  stereo step   = Sobel + TOED on both images (one launch of the
-                  gradient-field kernel for the pair) + `match_stereo`
+  stereo step   = undistort (distorted rigs) + Sobel + TOED on both images
+                  (one launch of the gradient-field kernel for the pair) +
+                  `match_stereo`
   temporal step = `match_temporal` + `lift_quads` + `estimate_pose`
 
 `VOPipeline.run_frame` carries the keyframe state across frames with the
 `reference`, `every_frame` and `adaptive` keyframe policies, a bootstrap
 temporal step (reference-mode gather window) until the first successful
-pose, and constant-velocity prediction. Not ported yet (ROADMAP queue 1):
-windowed BA, the GT supervision modes and distorted rigs.
+pose, and constant-velocity prediction. Evaluation modes: GT disparity
+supervision of the stereo cascade (`has_gt_disparity`), quads from the GT
+relative pose (`use_gt_pose`), filter distributions
+(`record_distributions`). `ba_window >= 2` refines the keyframe poses
+with the sliding-window BA of `models/window_ba.py`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
 from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
 from edge_based_visual_odometry_tpu_torch.models.types import (
-    FrameData, StereoMates, rig_arrays_from_rig)
+    FrameData, StereoMates, resolve_device, rig_arrays_from_rig)
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed
 
@@ -40,7 +43,9 @@ class FrameResult(NamedTuple):
     stereo_metrics: torch.Tensor     # (n_stages, 4)
     n_left_edges: torch.Tensor
     n_right_edges: torch.Tensor
-    distributions: Optional[dict] = None   # filter distributions: not ported
+    # filter / ambiguity distributions; None unless the step was built
+    # with record_distributions
+    distributions: Optional[dict] = None
 
 
 class TemporalResult(NamedTuple):
@@ -54,36 +59,39 @@ class TemporalResult(NamedTuple):
     success: torch.Tensor
 
 
-def _has_distortion(rig: StereoRig) -> bool:
-    return (any(abs(d) > 0 for d in rig.left.distortion[:4])
-            or any(abs(d) > 0 for d in rig.right.distortion[:4]))
+def _needs_undistort(cam) -> bool:
+    return any(abs(d) > 0 for d in cam.distortion[:4])
 
 
-def _device(device) -> torch.device:
-    """torch.device(device); a CUDA device where none exists is an error,
-    never a silent run on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device}: no CUDA device is available; pass "
-            f"device='cpu' to run the plain PyTorch twins on the CPU")
-    return device
-
-
-def build_stereo_step(rig: StereoRig, cfg: VOConfig, device):
-    """fn(left, right[, gn_capture]) -> FrameResult; images (H, W) numpy or
-    tensors, uint8 or float."""
-    if _has_distortion(rig):
-        raise NotImplementedError(
-            "distorted rigs: device undistort is ROADMAP queue 1 item 5")
-    device = _device(device)
+def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
+                      has_gt: bool = False,
+                      record_distributions: bool = False):
+    """fn(left, right[, disparity, occlusion][, gn_capture]) ->
+    FrameResult; images (H, W) numpy or tensors, uint8 or float. A camera
+    with non-zero distortion coefficients is undistorted on the device
+    first. `has_gt`: the step takes the GT disparity map and the
+    non-occlusion mask and supervises the cascade with them."""
+    device = resolve_device(device)
     rig_a = rig_arrays_from_rig(rig, device)
     gather_ry = SM.derive_gather_band(rig, cfg)
+    dists = [torch.tensor(cam.distortion[:4], dtype=torch.float32,
+                          device=device) if _needs_undistort(cam) else None
+             for cam in (rig.left, rig.right)]
 
-    def step(left, right, gn_capture=None) -> FrameResult:
+    def to_dev(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device,
+                                                 dtype=torch.float32)
+
+    def step(left, right, disparity=None, occlusion=None,
+             gn_capture=None) -> FrameResult:
         both = torch.stack([torch.as_tensor(np.asarray(left)),
                             torch.as_tensor(np.asarray(right))]).to(
             device=device, dtype=torch.float32)
+        if dists[0] is not None or dists[1] is not None:
+            both = torch.stack([
+                img if d is None else IMG.undistort(img, K, d)
+                for img, K, d in zip(both, (rig_a.K_left, rig_a.K_right),
+                                     dists)])
         gxs, gys = IMG.sobel_gradients(both)
         frame = FrameData(left=both[0], right=both[1],
                           left_gx=gxs[0], left_gy=gys[0],
@@ -92,26 +100,34 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device):
             both, kernel_size=cfg.toed_kernel_size, sigma=cfg.toed_sigma,
             grad_mag_min=cfg.toed_grad_mag_min, max_edges=cfg.max_edges,
             border=cfg.toed_border)
-        mates, _, metrics = SM.match_stereo(led, red, frame, rig_a, cfg,
-                                            gather_ry=gather_ry,
-                                            gn_capture=gn_capture)
-        return FrameResult(frame=frame, mates=mates, stereo_metrics=metrics,
-                           n_left_edges=led.count, n_right_edges=red.count)
+        out = SM.match_stereo(
+            led, red, frame, rig_a, cfg,
+            disparity_map=to_dev(disparity) if has_gt else None,
+            occlusion_map=(to_dev(occlusion)
+                           if has_gt and occlusion is not None else None),
+            gather_ry=gather_ry, record_distributions=record_distributions,
+            gn_capture=gn_capture)
+        return FrameResult(frame=frame, mates=out[0], stereo_metrics=out[2],
+                           n_left_edges=led.count, n_right_edges=red.count,
+                           distributions=out[3] if record_distributions
+                           else None)
 
     return step
 
 
-def build_temporal_step(rig: StereoRig, cfg: VOConfig, device):
+def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
+                        use_gt: bool = False):
     """fn(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t, seed) ->
-    TemporalResult; rel_R/rel_t is the predicted KF->CF pose."""
-    rig_a = rig_arrays_from_rig(rig, _device(device))
+    TemporalResult; rel_R/rel_t is the KF->CF pose used for quad
+    prediction (GT with `use_gt`, predicted in production)."""
+    rig_a = rig_arrays_from_rig(rig, resolve_device(device))
 
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,
              seed) -> TemporalResult:
         quads, tmetrics = TM.match_temporal(
             kf_mates, cf_mates, kf_frame, cf_frame, geom.Pose(rel_R, rel_t),
-            rig_a, cfg)
-        pq = MT.lift_quads(kf_mates, quads, rig_a, cfg)
+            rig_a, cfg, use_gt=use_gt)
+        pq = MT.lift_quads(kf_mates, quads, rig_a, cfg, use_gt=use_gt)
         res = MT.estimate_pose(pq, rig_a, cfg, seed)
         return TemporalResult(quads=quads, temporal_metrics=tmetrics,
                               R=res.R, t=res.t, inlier_count=res.inlier_count,
@@ -130,7 +146,18 @@ class VOPipeline:
     inlier ratio or quad count drops below its threshold).
 
     device: "cuda" (the default) runs the hand-written kernels and raises
-    where no CUDA device exists; "cpu" runs their plain twins."""
+    where no CUDA device exists; "cpu" runs their plain twins.
+
+    has_gt_disparity: `run_frame` takes the GT disparity (and optionally
+    the non-occlusion mask, 255 = visible) and logs the stereo stage rows.
+    use_gt_pose: quads are built from the GT relative pose and the
+    temporal stage rows are logged. ba_window: sliding-window BA length in
+    keyframes (0 = off, >= 2 on; needs a re-keyframing policy).
+
+    A rig with non-zero distortion coefficients is undistorted inside the
+    stereo step, on `device` (the reference goes through cv2 on the host
+    where cv2 imports; the port keeps the one path, so that a run does not
+    depend on the packages installed)."""
 
     rig: StereoRig
     cfg: VOConfig
@@ -141,58 +168,103 @@ class VOPipeline:
     rekeyframe_min_inlier_ratio: float = 0.4
     rekeyframe_min_quads: int = 50
     ba_window: int = 0
+    ba_mesh: object = None
+    record_distributions: bool = False
 
     def __post_init__(self):
-        if self.has_gt_disparity or self.use_gt_pose:
-            raise NotImplementedError(
-                "GT supervision / GT-pose modes are ROADMAP queue 1 item 5")
         if self.keyframe_policy not in ("reference", "every_frame",
                                         "adaptive"):
             raise ValueError(f"unknown keyframe_policy "
                              f"{self.keyframe_policy!r}")
-        if self.ba_window:
-            raise NotImplementedError(
-                "windowed BA (ba_window > 0) is ROADMAP queue 1 item 6")
-        self.device = torch.device(self.device)
-        self._stereo_step = build_stereo_step(self.rig, self.cfg, self.device)
-        self._temporal_step = build_temporal_step(self.rig, self.cfg,
-                                                  self.device)
+        self.device = resolve_device(self.device)
+        self._stereo_step = build_stereo_step(
+            self.rig, self.cfg, self.device, self.has_gt_disparity,
+            record_distributions=self.record_distributions)
+        self._temporal_step = build_temporal_step(
+            self.rig, self.cfg, self.device, self.use_gt_pose)
         # bootstrap: the first temporal step has no velocity (identity
         # prediction), so it runs with the reference-mode window radius
         self._temporal_step_boot = self._temporal_step
-        if self.cfg.temporal_gather_mode == "prediction":
+        if (not self.use_gt_pose
+                and self.cfg.temporal_gather_mode == "prediction"):
             boot_cfg = dataclasses.replace(
                 self.cfg,
                 temporal_grid_radius_prod=self.cfg.temporal_grid_radius,
                 quad_gather_slots_prod=self.cfg.quad_gather_slots)
             self._temporal_step_boot = build_temporal_step(
-                self.rig, boot_cfg, self.device)
+                self.rig, boot_cfg, self.device, self.use_gt_pose)
         self._have_velocity = False
+        self.wba = None
+        if self.ba_window >= 2:
+            # track chaining links the previous keyframe's mates to the new
+            # keyframe through the quads of the re-keyframing frame; the
+            # frame-0-forever policy never yields a second keyframe
+            if self.keyframe_policy not in ("every_frame", "adaptive"):
+                raise ValueError(
+                    "windowed BA (ba_window >= 2) requires a re-keyframing "
+                    f"policy, got keyframe_policy={self.keyframe_policy!r}")
+            from edge_based_visual_odometry_tpu_torch.models.window_ba import (
+                WindowBA, WindowBAConfig)
+            self.wba = WindowBA(self.rig.left.K,
+                                WindowBAConfig(window=self.ba_window),
+                                mesh=self.ba_mesh, device=self.device)
         self.keyframe: Optional[FrameResult] = None
         self.kf_index = 0
+        self._ba_kf_frames = []       # frame index of each BA-window keyframe
+        self.kf_pose_gt: Optional[geom.Pose] = None     # world->cam GT
         self.kf_pose_est = geom.Pose.identity(self.device)
         self.trajectory = []                       # per-frame world->cam
         self.frame_idx = 0
+        self.stereo_metrics_log = []
+        self.temporal_metrics_log = []
+        self.ba_info_log = []         # per-BA-solve info dicts
         self.last_rel = geom.Pose.identity(self.device)   # predicted KF->CF
         self.prev_cam_pose: Optional[geom.Pose] = None
 
-    def run_frame(self, left_img, right_img):
+    def _on_device(self, pose: Optional[geom.Pose]) -> Optional[geom.Pose]:
+        if pose is None:
+            return None
+        return geom.Pose(*(torch.as_tensor(a).to(self.device, torch.float32)
+                           for a in pose))
+
+    def run_frame(self, left_img, right_img, disparity=None,
+                  gt_pose: Optional[geom.Pose] = None, occlusion=None):
         """Process one stereo frame; returns (FrameResult, TemporalResult or
-        None)."""
-        fr = self._stereo_step(left_img, right_img)
+        None). `disparity`, `occlusion`: GT left disparity and
+        non-occlusion mask (255 = visible) of the GT supervision mode;
+        `gt_pose`: world->cam GT pose of the frame (`use_gt_pose`)."""
+        gt_pose = self._on_device(gt_pose)
+        if self.has_gt_disparity:
+            if occlusion is None:
+                occlusion = np.full(np.asarray(disparity).shape, 255.0,
+                                    np.float32)
+            fr = self._stereo_step(left_img, right_img, disparity, occlusion)
+            self.stereo_metrics_log.append(fr.stereo_metrics.cpu().numpy())
+        else:
+            fr = self._stereo_step(left_img, right_img)
         tr = None
         if self.keyframe is None:
-            self._set_keyframe(fr)
+            self._set_keyframe(fr, gt_pose)
             self.trajectory.append(self.kf_pose_est)
             self.prev_cam_pose = self.kf_pose_est
+            if self.wba is not None:
+                self.wba.add_keyframe(fr.mates, self.kf_pose_est)
+                self._ba_kf_frames.append(self.frame_idx)
         else:
+            if self.use_gt_pose:
+                rel = geom.relative_pose(self.kf_pose_gt, gt_pose)
+            else:
+                rel = self.last_rel    # constant-velocity prediction
             step = (self._temporal_step if self._have_velocity
                     else self._temporal_step_boot)
             tr = step(self.keyframe.mates, self.keyframe.frame, fr.mates,
-                      fr.frame, self.last_rel.R, self.last_rel.t,
+                      fr.frame, rel.R, rel.t,
                       self.cfg.ransac_seed + self.frame_idx)
             if bool(tr.success):
                 self._have_velocity = True
+            if self.use_gt_pose:
+                self.temporal_metrics_log.append(
+                    tr.temporal_metrics.cpu().numpy())
             rel_est = geom.Pose(tr.R, tr.t)
             cam_pose = rel_est.compose(self.kf_pose_est)
             self.trajectory.append(cam_pose)
@@ -201,12 +273,38 @@ class VOPipeline:
             self.prev_cam_pose = cam_pose
             if self._should_rekeyframe(tr):
                 self.kf_pose_est = cam_pose
-                self._set_keyframe(fr)
+                self._set_keyframe(fr, gt_pose)
                 self.last_rel = vel
+                if self.wba is not None:
+                    self._run_window_ba(fr, tr, cam_pose)
             else:
                 self.last_rel = vel.compose(rel_est)
         self.frame_idx += 1
         return fr, tr
+
+    def _run_window_ba(self, fr: FrameResult, tr: TemporalResult, cam_pose):
+        """Register the new keyframe with its track links, solve the
+        window, and write the refined keyframe poses back."""
+        from edge_based_visual_odometry_tpu_torch.models.window_ba import (
+            best_links_from_quads)
+        self.wba.add_keyframe(fr.mates, cam_pose, best_links_from_quads(tr))
+        self._ba_kf_frames.append(self.frame_idx)
+        out = self.wba.run()
+        if out is None:
+            return
+        poses, ba_info = out
+        self.ba_info_log.append(ba_info)
+        # Refresh the KEYFRAME entries of the trajectory and the current
+        # estimate. Under 'adaptive' keyframes are a sparse subset of
+        # frames, so write back at the recorded keyframe frame indices (the
+        # frames between keep their relative estimates), aligned from the
+        # END: newest pose <-> newest recorded keyframe index, which stays
+        # right when fewer indices than poses are recorded.
+        ks = self._ba_kf_frames
+        m = min(len(ks), len(poses))
+        for fi, p in zip(ks[-m:], poses[-m:]):
+            self.trajectory[fi] = p
+        self.kf_pose_est = poses[-1]
 
     def _should_rekeyframe(self, tr: TemporalResult) -> bool:
         if self.keyframe_policy == "reference":
@@ -216,6 +314,7 @@ class VOPipeline:
         return (float(tr.inlier_ratio) < self.rekeyframe_min_inlier_ratio
                 or int(tr.n_quads) < self.rekeyframe_min_quads)
 
-    def _set_keyframe(self, fr: FrameResult):
+    def _set_keyframe(self, fr: FrameResult, gt_pose: Optional[geom.Pose]):
         self.keyframe = fr
         self.kf_index = self.frame_idx
+        self.kf_pose_gt = gt_pose

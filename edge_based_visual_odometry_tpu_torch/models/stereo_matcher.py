@@ -1,8 +1,10 @@
 """Stereo edge matching: the filter cascade as masked tensor passes.
 
-Port of `edge_based_visual_odometry_tpu/models/stereo_matcher.py`, the
-production (no-GT) branch with the dense gate layout. The state is one
-fixed-shape (N_left, MAX_CAND) candidate tensor with a monotone mask:
+Port of `edge_based_visual_odometry_tpu/models/stereo_matcher.py` with the
+dense gate layout, in both modes: production (no GT) and GT-supervised
+(veridical sets from a GT disparity map and an optional non-occlusion
+mask). The state is one fixed-shape (N_left, MAX_CAND) candidate tensor
+with a monotone mask:
 
   stage 1  epipolar distance      stage 7  best/nearly-best descriptor
   stage 2  max disparity          stage 8  epipolar shift
@@ -11,8 +13,9 @@ fixed-shape (N_left, MAX_CAND) candidate tensor with a monotone mask:
   stage 5  NCC                    stage 11 post-cluster NCC
   stage 6  best/nearly-best NCC   stage 12 best-only pick, empty-row purge
 
-Stage metrics rows are [rows with >= 1 candidate, total candidates, 0, 0]
-aligned with STAGE_NAMES.
+Stage metrics rows are aligned with STAGE_NAMES: without GT, [rows with
+>= 1 candidate, total candidates, 0, 0]; with GT, [recall, precision,
+precision over rows with candidates, ambiguity].
 """
 
 from __future__ import annotations
@@ -49,6 +52,10 @@ class StereoState(NamedTuple):
     ly: torch.Tensor
     ltheta: torch.Tensor
     epi_line: torch.Tensor       # (N, 3)
+    gt_x: torch.Tensor           # (N,) GT right location (-1 without GT)
+    gt_y: torch.Tensor
+    gamma_gt_l: torch.Tensor     # (N, 3) GT 3D point, left / right camera
+    gamma_gt_r: torch.Tensor
     cand_idx: torch.Tensor       # (N, C) right TOED index
     cx: torch.Tensor
     cy: torch.Tensor
@@ -56,6 +63,33 @@ class StereoState(NamedTuple):
     cmask: torch.Tensor
     ncc: torch.Tensor
     desc_dist: torch.Tensor
+
+
+def _gt_rows(mask, row_mask, d_gt, dist_to_gt: float):
+    """[recall, precision, precision over rows with candidates, ambiguity]
+    of an (N, S) candidate mask whose distances to the GT location are
+    d_gt."""
+    tp = mask & (d_gt <= dist_to_gt)
+    n_tp = tp.sum(1)
+    n_c = mask.sum(1)
+    has_c = row_mask & (n_c > 0)
+    rows = torch.clamp(row_mask.sum(), min=1)
+    rows_w = torch.clamp(has_c.sum(), min=1)
+    zero = torch.zeros((), device=mask.device)
+    prec = torch.where(n_c > 0, n_tp / torch.clamp(n_c, min=1), zero)
+    return torch.stack([
+        (row_mask & (n_tp > 0)).sum() / rows,
+        torch.where(row_mask, prec, zero).sum() / rows,
+        torch.where(has_c, prec, zero).sum() / rows_w,
+        torch.where(has_c, n_c, torch.zeros_like(n_c)).sum() / rows_w,
+    ]).to(torch.float32)
+
+
+def _metrics(state: StereoState, dist_to_gt: float):
+    """Per-stage recall / precision / ambiguity against the GT locations."""
+    d = torch.sqrt((state.cx - state.gt_x[:, None]) ** 2
+                   + (state.cy - state.gt_y[:, None]) ** 2)
+    return _gt_rows(state.cmask, state.row_mask, d, dist_to_gt)
 
 
 def _bnb_keep(scores, mask, ratio_thresh: float, higher_better: bool):
@@ -171,12 +205,27 @@ def _row_chunked(fn, n_rows: int, chunk: int = ROW_CHUNK):
 
 def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                  frame: FrameData, rig: RigArrays, cfg: VOConfig,
-                 gather_ry: float = 4.0, gn_capture: Optional[dict] = None):
-    """Run the production stereo cascade.
+                 disparity_map: Optional[torch.Tensor] = None,
+                 occlusion_map: Optional[torch.Tensor] = None,
+                 gather_ry: float = 4.0, record_distributions: bool = False,
+                 gn_capture: Optional[dict] = None):
+    """Run the full stereo cascade.
 
-    Returns (StereoMates, StereoState, metrics (n_stages, 4)).
+    `disparity_map` (H, W): GT left disparity; switches on the supervision
+    path (veridical sets, recall/precision rows, `gamma_gt` and `is_tp` of
+    the mates). `occlusion_map`: optional non-occlusion mask (255 = visible
+    in both views); edges whose GT location is occluded leave the veridical
+    sets.
+
+    Returns (StereoMates, StereoState, metrics (n_stages, 4)), and with
+    `record_distributions` a 4th element: a dict of raw filter-score and
+    ambiguity distributions, '<filter>' -> (values (N, C), is_gt (N, C),
+    mask (N, C)) taken before the gate, '<stage>_ambiguity' -> (counts
+    (N,), row_mask (N,)), '<stage>_state' -> StereoState snapshots and
+    'right_edges_xyt', which `utils/debug_io` writes out.
     `gn_capture`: if a dict is given, the stage-9 GN input (the flat pair
     list handed to `refine_along_epipolar_batch`) is stored in it."""
+    has_gt = disparity_map is not None
     N = cfg.max_edges
     C = cfg.max_candidates
     H, W = frame.left.shape
@@ -186,10 +235,53 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     row_mask = left_edges.valid
     epi = geom.epipolar_lines(rig.F21, torch.stack([lx, ly], -1))
 
+    # ---- GT supervision: GT right location and 3D point per left edge ----
+    if has_gt:
+        disp, disp_ok = P.bilinear_sample_nan(disparity_map, lx, ly)
+        deg = geom.rad2deg(lt)
+        orient_excl = ((torch.abs(deg) < cfg.gt_orient_exclusion_deg)
+                       | (torch.abs(deg - 180.0) < cfg.gt_orient_exclusion_deg)
+                       | (torch.abs(deg + 180.0) < cfg.gt_orient_exclusion_deg))
+        gt_ok = disp_ok & torch.isfinite(disp) & (disp >= 0) & ~orient_excl
+        if occlusion_map is not None:
+            # bilinear >= 254 == all 4 neighbour pixels are 255 (visible)
+            occ, occ_in = P.bilinear_sample_nan(occlusion_map, lx, ly)
+            gt_ok = gt_ok & occ_in & (occ >= 254.0)
+        minus1 = torch.full_like(lx, -1.0)
+        gt_x = torch.where(gt_ok, lx - disp, minus1)
+        gt_y = torch.where(gt_ok, ly, minus1)
+        ray1 = geom.pixel_to_ray(rig.K_left_inv, torch.stack([lx, ly], -1))
+        ray2 = geom.pixel_to_ray(rig.K_left_inv, torch.stack([gt_x, gt_y], -1))
+        gamma_l = geom.backproject_two_rays(rig.R21, rig.T21, ray1, ray2)
+        gamma_r = torch.einsum("ij,nj->ni", rig.R21, gamma_l) + rig.T21
+        row_mask = row_mask & gt_ok
+    else:
+        gt_x = torch.full((N,), -1.0, device=dev)
+        gt_y = torch.full((N,), -1.0, device=dev)
+        gamma_l = torch.full((N, 3), -1.0, device=dev)
+        gamma_r = torch.full((N, 3), -1.0, device=dev)
+
     r_attrs = torch.stack([right_edges.x, right_edges.y, right_edges.theta], -1)
     rgrid = GRID.build_sorted_grid(right_edges.x, right_edges.y,
                                    right_edges.valid, W, H, band_h=8,
                                    attrs=r_attrs)
+
+    # ---- veridical sets: right edges near the GT location that also pass
+    # the epipolar and orientation tolerances; rows without one leave ----
+    if has_gt:
+        _, v_attrs, vmask = GRID.query_sorted_grid_attrs(
+            rgrid, gt_x, gt_y, rx=cfg.gt_pair_dist_tol + 0.5,
+            ry=cfg.gt_pair_dist_tol + 0.5, slots_per_band=16, n_band_window=2)
+        v_x, v_y, v_t = v_attrs[0], v_attrs[1], v_attrs[2]
+        v_epi = geom.point_line_distance(epi[:, None, :],
+                                         torch.stack([v_x, v_y], -1))
+        v_d = torch.sqrt((v_x - gt_x[:, None]) ** 2 + (v_y - gt_y[:, None]) ** 2)
+        # raw (unwrapped) orientation difference
+        v_dth = torch.abs(geom.rad2deg(v_t) - geom.rad2deg(lt)[:, None])
+        vmask = (vmask & (v_epi < cfg.epipolar_line_dist_thresh)
+                 & (v_d < cfg.gt_pair_dist_tol)
+                 & (v_dth < cfg.gt_pair_orient_tol))
+        row_mask = row_mask & vmask.any(1)
 
     # ---- stages 1-3 on the raw gather window, then compact to C ----
     n_band_window = int(-(-2.0 * gather_ry // 8)) + 1
@@ -199,29 +291,70 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
         n_band_window=n_band_window)
     g_x, g_y, g_t = g_attrs[0], g_attrs[1], g_attrs[2]
     metrics = []
+    if has_gt:
+        g_dgt = torch.sqrt((g_x - gt_x[:, None]) ** 2
+                           + (g_y - gt_y[:, None]) ** 2)
+
+    def record_raw(mask):
+        metrics.append(_gt_rows(mask, row_mask, g_dgt, cfg.dist_to_gt_thresh)
+                       if has_gt else _count_row(mask))
 
     g_epi = geom.point_line_distance(epi[:, None, :],
                                      torch.stack([g_x, g_y], -1))
+    if cfg.debug_preepi_metrics:
+        record_raw(gmask)          # raw gather-window occupancy (debug)
+        record_raw(row_mask[:, None])
+        record_raw(gmask & (g_epi < 100.0) & row_mask[:, None])
     gmask = gmask & (g_epi < cfg.epipolar_line_dist_thresh) & row_mask[:, None]
-    metrics.append(_count_row(gmask))
+    record_raw(gmask)
     g_d = torch.sqrt((g_x - lx[:, None]) ** 2 + (g_y - ly[:, None]) ** 2)
     gmask = gmask & (g_d <= cfg.max_disparity)
-    metrics.append(_count_row(gmask))
+    record_raw(gmask)
     g_dth = geom.orientation_diff_deg(lt[:, None], g_t)
     gmask = gmask & geom.orientation_gate(g_dth, cfg.orientation_thresh_deg)
-    metrics.append(_count_row(gmask))
+    record_raw(gmask)
 
     cand_idx, c_attrs, cmask = GRID.compact_candidates_attrs(
         gidx, g_attrs, gmask, C, priority=g_epi)
     state = StereoState(
         row_mask=row_mask, lx=lx, ly=ly, ltheta=lt, epi_line=epi,
+        gt_x=gt_x, gt_y=gt_y, gamma_gt_l=gamma_l, gamma_gt_r=gamma_r,
         cand_idx=cand_idx, cx=c_attrs[0], cy=c_attrs[1], ctheta=c_attrs[2],
         cmask=cmask,
         ncc=torch.zeros((N, C), device=dev),
         desc_dist=torch.full((N, C), 2.0 * cfg.sift_threshold, device=dev))
 
     def record(st):
-        metrics.append(_count_row(st.cmask))
+        metrics.append(_metrics(st, cfg.dist_to_gt_thresh) if has_gt
+                       else _count_row(st.cmask))
+
+    dists = {}
+
+    def snap_filter(name, st, values):
+        """Filter scores before their gate, with the veridical flags."""
+        if not record_distributions:
+            return
+        if has_gt:
+            d = torch.sqrt((st.cx - st.gt_x[:, None]) ** 2
+                           + (st.cy - st.gt_y[:, None]) ** 2)
+            is_gt = st.cmask & (d <= cfg.dist_to_gt_thresh)
+        else:
+            is_gt = torch.zeros_like(st.cmask)
+        dists[name] = (values, is_gt, st.cmask)
+
+    def snap_ambiguity(stage, st):
+        """Per-edge candidate counts."""
+        if record_distributions:
+            dists[f"{stage}_ambiguity"] = (st.cmask.sum(1), st.row_mask)
+
+    def snap_state(stage, st):
+        """Cascade-state snapshot for the per-cluster evaluation writers."""
+        if record_distributions:
+            dists[f"{stage}_state"] = st
+
+    if record_distributions:
+        dists["right_edges_xyt"] = (right_edges.x, right_edges.y,
+                                    right_edges.theta)
 
     desc_kw = dict(shift_mag=cfg.sift_shift_mag,
                    n_samples=cfg.desc_patch_samples,
@@ -238,9 +371,11 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     # ---- stage 4: descriptor gate (dense rows) ----
     ddist = _row_chunked(lambda s: DESC.min_cross_distance_dot(
         l_desc[s], r_desc[state.cand_idx[s]]), N)
+    snap_filter("sift_distance", state, ddist)
     state = state._replace(cmask=state.cmask & (ddist < cfg.sift_threshold),
                            desc_dist=ddist)
     record(state)
+    snap_ambiguity("sift", state)
 
     # ---- patches for NCC, flat [plus | minus] ----
     pp_n = cfg.patch_size * cfg.patch_size
@@ -263,6 +398,7 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                       cp[..., :pp_n], cp[..., pp_n:], cok[..., 0], cok[..., 1])
 
     sim = _row_chunked(ncc_rows, N)
+    snap_filter("ncc", state, sim)
     state = state._replace(cmask=state.cmask & (sim > cfg.ncc_thresh), ncc=sim)
     record(state)
 
@@ -276,6 +412,7 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
 
     # ---- stage 8: epipolar shift ----
     state = _epipolar_shift(state, cfg)
+    snap_state("shift", state)
 
     # ---- stage 9: photometric GN along the epipolar line (kernel K2) ----
     rows, slots, fmask = _flatten_active(state.cmask, cfg.max_refine_pairs)
@@ -308,6 +445,8 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
         desc_dist=_scatter_back(state.desc_dist, rows, slots, fmask,
                                 res.confidence))
     record(state)
+    snap_ambiguity("photometric_refinement", state)
+    snap_state("photo_refine", state)
 
     # ---- stage 10: clustering (no orientation gate on the stereo path) ----
     cl = CL.cluster_edges(state.cx, state.cy, state.ctheta, state.cmask,
@@ -321,6 +460,8 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                            ctheta=torch.where(cl.mask, cl.theta, state.ctheta),
                            cmask=cl.mask)
     record(state)
+    snap_ambiguity("edge_clustering", state)
+    snap_state("cluster", state)
 
     # ---- stage 11: post-cluster NCC at the new centres ----
     rows, slots, fmask = _flatten_active(state.cmask, cfg.max_refine_pairs)
@@ -352,6 +493,8 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
 
     mates = _finalize(state, frame, rig, cfg, l_patches, l_patch_ok, l_desc,
                       best_slot, desc_kw)
+    if record_distributions:
+        return mates, state, torch.stack(metrics), dists
     return mates, state, torch.stack(metrics)
 
 
@@ -391,6 +534,11 @@ def _finalize(state: StereoState, frame: FrameData, rig: RigArrays,
     ray2 = geom.pixel_to_ray(rig.K_right_inv, torch.stack([rx, ry], -1))
     gamma = geom.backproject_two_rays(rig.R21, rig.T21, ray1, ray2)
 
+    gt_x = state.gt_x[row_of]
+    gt_y = state.gt_y[row_of]
+    d_gt = torch.sqrt((rx - gt_x) ** 2 + (ry - gt_y) ** 2)
+    is_tp = valid & (gt_x >= 0) & (d_gt <= cfg.dist_to_gt_thresh)
+
     v1 = valid[:, None]
     zero = torch.zeros((), device=dev)
     z = lambda a: torch.where(valid, a, zero)
@@ -405,7 +553,7 @@ def _finalize(state: StereoState, frame: FrameData, rig: RigArrays,
         left_desc=l_desc[row_of] * v1,
         right_desc=r_desc * v1,
         gamma=gamma * v1,
-        gamma_gt=torch.full((M, 3), -1.0, device=dev) * v1,
-        gt_x=minus1, gt_y=minus1.clone(),
-        is_tp=torch.zeros((M,), dtype=torch.bool, device=dev),
-        valid=valid, count=count)
+        gamma_gt=state.gamma_gt_l[row_of] * v1,
+        gt_x=torch.where(valid, gt_x, minus1),
+        gt_y=torch.where(valid, gt_y, minus1),
+        is_tp=is_tp, valid=valid, count=count)

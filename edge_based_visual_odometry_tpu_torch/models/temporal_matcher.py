@@ -1,10 +1,11 @@
 """Temporal quad matching: keyframe stereo mates <-> current-frame mates.
 
-Port of `edge_based_visual_odometry_tpu/models/temporal_matcher.py`, the
-production (no-GT) branch with the dense gate layout, in both gather
-modes ("prediction": window centred at the predicted projection;
-"reference": radius around the KF locations). The state is a fixed-shape
-(M_kf, MAX_QUAD_CAND) tensor keyed by CF mate index.
+Port of `edge_based_visual_odometry_tpu/models/temporal_matcher.py` with the
+dense gate layout, in both gather modes ("prediction": window centred at
+the predicted projection; "reference": radius around the KF locations)
+and in the evaluation mode `use_gt` (GT relative pose, GT 3D points, only
+rows that form a veridical quad, recall/precision rows). The state is a
+fixed-shape (M_kf, MAX_QUAD_CAND) tensor keyed by CF mate index.
 
 Cascade: grid gathering + box membership both sides, orientation both
 sides, NCC both sides, descriptor both sides, best/nearly-best on the
@@ -57,9 +58,36 @@ class TemporalQuads(NamedTuple):
     desc_l: torch.Tensor         # left-side descriptor distance
 
 
-def _project_kf_points(kf: StereoMates, rel: geom.Pose, rig: RigArrays):
-    """Project KF 3D points and transported tangents into the CF."""
-    g_cf_l = rel.transform(kf.gamma)
+def _quad_metrics(q, kf_is_tp, dist_thresh: float):
+    """[recall, precision, precision, ambiguity] of the quad candidates
+    against the projections of the KF point, over rows whose KF mate is a
+    true positive. `q` needs row_mask, proj_left/right, l/r centres, cmask."""
+    rows = q.row_mask & kf_is_tp
+    dl = torch.sqrt((q.lcx - q.proj_left[:, 0:1]) ** 2
+                    + (q.lcy - q.proj_left[:, 1:2]) ** 2)
+    dr = torch.sqrt((q.rcx - q.proj_right[:, 0:1]) ** 2
+                    + (q.rcy - q.proj_right[:, 1:2]) ** 2)
+    tp = q.cmask & (dl < dist_thresh) & (dr < dist_thresh)
+    n_tp = tp.sum(1)
+    n_c = q.cmask.sum(1)
+    has_c = rows & (n_c > 0)
+    n_rows = torch.clamp(rows.sum(), min=1)
+    n_rows_c = torch.clamp(has_c.sum(), min=1)
+    zero = torch.zeros((), device=dl.device)
+    recall = (rows & (n_tp > 0)).sum() / n_rows
+    precision = torch.where(has_c, n_tp / torch.clamp(n_c, min=1),
+                            zero).sum() / n_rows_c
+    ambiguity = torch.where(has_c, n_c,
+                            torch.zeros_like(n_c)).sum() / n_rows_c - 1.0
+    return torch.stack([recall, precision, precision,
+                        ambiguity]).to(torch.float32)
+
+
+def _project_kf_points(kf: StereoMates, rel: geom.Pose, rig: RigArrays,
+                       use_gt_gamma: bool = False):
+    """Project KF 3D points (the GT-disparity points with `use_gt_gamma`)
+    and transported tangents into the CF."""
+    g_cf_l = rel.transform(kf.gamma_gt if use_gt_gamma else kf.gamma)
     pl = geom.project(rig.K_left, g_cf_l)
     g_cf_r = torch.einsum("ij,nj->ni", rig.R21, g_cf_l) + rig.T21
     pr = geom.project(rig.K_right, g_cf_r)
@@ -79,17 +107,20 @@ def _project_kf_points(kf: StereoMates, rel: geom.Pose, rig: RigArrays):
 
 def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
                    cf_frame: FrameData, rel_pose: geom.Pose, rig: RigArrays,
-                   cfg: VOConfig):
-    """Run the quad cascade. rel_pose: predicted KF->CF pose. Returns
-    (TemporalQuads, metrics) with metrics rows [rows with >= 1 candidate,
-    total candidates, 0, 0] aligned to TEMPORAL_STAGE_NAMES."""
+                   cfg: VOConfig, use_gt: bool = False):
+    """Run the quad cascade. rel_pose: KF->CF pose (GT with `use_gt`,
+    predicted in production). Returns (TemporalQuads, metrics) with metrics
+    rows aligned to TEMPORAL_STAGE_NAMES: [rows with >= 1 candidate, total
+    candidates, 0, 0], or with `use_gt` [recall, precision, precision,
+    ambiguity]."""
     M = cfg.max_mates
     Cq = cfg.max_quad_candidates
     H, W = cf_frame.left.shape
     dev = kf.left_x.device
     margin = 10.0
 
-    pl, pr, th_l, th_r = _project_kf_points(kf, rel_pose, rig)
+    pl, pr, th_l, th_r = _project_kf_points(kf, rel_pose, rig,
+                                            use_gt_gamma=use_gt)
     in_img = ((pl[:, 0] > margin) & (pl[:, 1] > margin)
               & (pl[:, 0] < W - margin) & (pl[:, 1] < H - margin)
               & (pr[:, 0] > margin) & (pr[:, 1] > margin)
@@ -118,9 +149,13 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
              & geom.orientation_gate(v_or, cfg.veridical_orient_thresh_deg))
     has_verid = vmask.any(1)
     row_mask = kf.valid & in_img
+    if use_gt:
+        # only KF rows that formed a veridical quad take part
+        row_mask = row_mask & has_verid
 
-    # ---- candidate gathering with left AND right box membership ----
-    if cfg.temporal_gather_mode == "reference":
+    # ---- candidate gathering with left AND right box membership; the
+    # evaluation mode always gathers around the KF locations ----
+    if use_gt or cfg.temporal_gather_mode == "reference":
         r_g, n_slots = cfg.temporal_grid_radius, cfg.quad_gather_slots
         gl_x, gl_y = kf.left_x, kf.left_y
         gr_x, gr_y = kf.right_x, kf.right_y
@@ -135,13 +170,28 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
     gmask = (gmask & row_mask[:, None]
              & (torch.abs(g_at[3] - gr_x[:, None]) <= r_g)
              & (torch.abs(g_at[4] - gr_y[:, None]) <= r_g))
-    metrics = [_count_row(gmask)]
+    metrics = []
+
+    def record_raw(mask):
+        if not use_gt:
+            metrics.append(_count_row(mask))
+            return
+        tmp = TemporalQuads(
+            row_mask=row_mask, proj_left=pl, proj_right=pr,
+            proj_theta_l=th_l, proj_theta_r=th_r, has_veridical=has_verid,
+            cf_idx=gidx, lcx=g_at[0], lcy=g_at[1], lct=g_at[2],
+            rcx=g_at[3], rcy=g_at[4], rct=g_at[5], cmask=mask,
+            ncc_l=None, desc_l=None)
+        metrics.append(_quad_metrics(tmp, kf.is_tp,
+                                     cfg.dist_to_gt_thresh_quads))
+
+    record_raw(gmask)
 
     g_ol = geom.orientation_diff_deg(kf.left_theta[:, None], g_at[2])
     g_or = geom.orientation_diff_deg(kf.right_theta[:, None], g_at[5])
     gmask = (gmask & geom.orientation_gate(g_ol, cfg.temporal_orient_thresh_deg)
              & geom.orientation_gate(g_or, cfg.temporal_orient_thresh_deg))
-    metrics.append(_count_row(gmask))
+    record_raw(gmask)
 
     # compaction priority: distance to the predicted projection, both sides
     d_l = torch.hypot(g_at[0] - pl[:, None, 0], g_at[1] - pl[:, None, 1])
@@ -157,7 +207,8 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
         desc_l=torch.full((M, Cq), 900.0, device=dev))
 
     def record(qq):
-        metrics.append(_count_row(qq.cmask))
+        metrics.append(_quad_metrics(qq, kf.is_tp, cfg.dist_to_gt_thresh_quads)
+                       if use_gt else _count_row(qq.cmask))
 
     # ---- NCC + descriptor gates, both sides (dense) ----
     # CF patches are rounded to bf16, as the reference ships them

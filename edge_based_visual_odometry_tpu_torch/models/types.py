@@ -76,6 +76,28 @@ class StereoMates(NamedTuple):
     count: torch.Tensor          # () int32
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); a CUDA device where none exists is an error,
+    never a silent run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available; pass "
+            f"device='cpu' to run the plain PyTorch twins on the CPU")
+    return device
+
+
+def to_numpy(a, dtype=None) -> np.ndarray:
+    """numpy copy of an array or of a tensor on any device (one transfer);
+    bfloat16, which numpy cannot hold, comes back as float32."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.to(torch.float32)
+        a = a.numpy()
+    return np.asarray(a, dtype)
+
+
 def rig_arrays_from_rig(rig: StereoRig, device, dtype=torch.float32) -> RigArrays:
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

@@ -16,6 +16,50 @@ import torch
 from edge_based_visual_odometry_tpu_torch.ops import tiled_sampling as TS
 
 
+def bilinear_sample_nan(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Bilinear interpolation with out-of-bounds detection: returns (value,
+    in_bounds), out of bounds when floor(x) < 0 or ceil(x) > W-1 (same for
+    y). Callers mask instead of propagating NaN."""
+    H, W = img.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = torch.ceil(x)
+    y1 = torch.ceil(y)
+    inb = (x0 >= 0) & (y0 >= 0) & (x1 <= W - 1) & (y1 <= H - 1)
+    x0i = torch.clamp(x0, 0, W - 1).to(torch.int64)
+    y0i = torch.clamp(y0, 0, H - 1).to(torch.int64)
+    x1i = torch.clamp(x1, 0, W - 1).to(torch.int64)
+    y1i = torch.clamp(y1, 0, H - 1).to(torch.int64)
+    v00 = img[y0i, x0i]
+    v10 = img[y0i, x1i]
+    v01 = img[y1i, x0i]
+    v11 = img[y1i, x1i]
+    a = x - x0
+    b = y - y0
+    val = ((1 - a) * (1 - b) * v00 + a * (1 - b) * v10
+           + (1 - a) * b * v01 + a * b * v11)
+    return val, inb
+
+
+def bilinear_sample_clamp(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Bilinear sampling with coordinates clamped to the image."""
+    H, W = img.shape
+    x = torch.clamp(x, 0.0, W - 1.0)
+    y = torch.clamp(y, 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    a = x - x0
+    b = y - y0
+    v00 = img[y0, x0]
+    v10 = img[y0, x1]
+    v01 = img[y1, x0]
+    v11 = img[y1, x1]
+    return ((1 - a) * (1 - b) * v00 + a * (1 - b) * v10
+            + (1 - a) * b * v01 + a * b * v11)
+
+
 def sample_tile_clamped(maps: torch.Tensor, ox, oy, xs, ys, tile: int):
     """Bilinear samples of (H, W) or (C, H, W) maps at absolute coords
     (xs, ys), each clamped to the T x T tile at origin (ox, oy) and read

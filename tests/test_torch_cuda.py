@@ -217,3 +217,112 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
             assert bool(tg.success)
             qc, qg = int(tc.n_quads), int(tg.n_quads)
             assert min(qc, qg) >= 0.97 * max(qc, qg)
+
+
+def test_run_ba_on_the_card_matches_cpu(dev):
+    """The BA's scatter-adds use atomics on the card: poses within 1e-4 of
+    the CPU solve, costs rtol 1e-3."""
+    from edge_based_visual_odometry_tpu_torch.models import ba as BA
+    rng = np.random.default_rng(2)
+    n_kf, n_lm = 3, 120
+    X = np.stack([rng.uniform(-3, 3, n_lm), rng.uniform(-2, 2, n_lm),
+                  rng.uniform(4, 12, n_lm)], 1).astype(np.float32)
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
+    t = np.stack([[-0.1 * k, 0.0, -0.3 * k] for k in range(n_kf)]).astype(
+        np.float32)
+    kf, lm = np.divmod(np.arange(n_kf * n_lm), n_lm)
+    uvw = (X[lm] + t[kf]) @ K.T
+    uv = uvw[:, :2] / uvw[:, 2:3] + rng.normal(0, 0.3, (kf.size, 2))
+    th = rng.uniform(0, np.pi, kf.size)
+    X0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    f = dict(R=np.stack([np.eye(3, dtype=np.float32)] * n_kf),
+             t=t + rng.normal(0, 0.02, t.shape).astype(np.float32) * (
+                 np.arange(n_kf)[:, None] > 0),
+             X=X0, obs_kf=kf, obs_lm=lm, obs_uv=uv.astype(np.float32),
+             obs_w=np.ones(kf.size, np.float32), K_cam=K, X_prior=X0,
+             prior_w=np.float32(25.0),
+             obs_n=np.stack([-np.sin(th), np.cos(th)], -1).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        p = BA.BAProblem(**{k: torch.as_tensor(np.asarray(v)).to(d)
+                            for k, v in f.items()})
+        out[str(d)] = BA.run_ba(p, n_iters=6, damping=1e-3)
+    a, b = out["cpu"], out[str(dev)]
+    assert b.R.device.type == "cuda"
+    torch.testing.assert_close(b.cost_history.cpu(), a.cost_history,
+                               rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(b.R.cpu(), a.R, rtol=0, atol=1e-4)
+    torch.testing.assert_close(b.t.cpu(), a.t, rtol=0, atol=1e-4)
+
+
+def test_gn_kernel_bit_for_bit_on_remapped_float_frames(dev):
+    """The stage-9 input of a distorted rig: the images are bilinear remaps,
+    so float-valued, and the GT supervision has narrowed the rows. The
+    kernel equals its twin bit for bit there too."""
+    import dataclasses
+    seq = S.make_sequence(1, 120, 160)
+    cam = dataclasses.replace(seq.rig.left,
+                              distortion=(-0.05, 0.01, 0.0005, -0.0005))
+    rig = dataclasses.replace(seq.rig, left=cam, right=cam)
+    f = seq.frames[0]
+    cap = {}
+    PL.build_stereo_step(rig, VOConfig(**SMALL), dev, has_gt=True)(
+        f.left, f.right, f.disparity, np.full(f.left.shape, 255.0, np.float32),
+        gn_capture=cap)
+    a, kw = cap["args"], cap["kwargs"]
+    act = kw["active"]
+    assert int(act.sum()) > 100
+    assert float((a[1] != a[1].round()).float().mean()) > 0.5
+    gn_kw = dict(patch_size=kw["patch_size"], tol=kw["tol"],
+                 huber_delta=kw["huber_delta"], tile=kw["tile"])
+    alpha0 = torch.zeros(act.shape[0], device=dev)
+    for it0, it_stop in ((0, 2), (0, 20)):
+        k = GN.refine_along_epipolar_cuda(*a, alpha0, act, it0, it_stop,
+                                          max_iter=20, **gn_kw)
+        p = GN.refine_along_epipolar_plain(*a, alpha0, act, it0, it_stop,
+                                           max_iter=20, **gn_kw)
+        for u, v in zip((*k[0], k[1]), (*p[0], p[1])):
+            torch.testing.assert_close(u[act], v[act], rtol=0, atol=0)
+
+
+def test_undistort_on_the_card_matches_cpu(dev, frame):
+    img = torch.from_numpy(frame[0].astype(np.float32))
+    K = torch.tensor([[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]])
+    d = torch.tensor([-0.1, 0.02, 0.001, -0.001])
+    torch.testing.assert_close(
+        IMG.undistort(img.to(dev), K.to(dev), d.to(dev)).cpu(),
+        IMG.undistort(img, K, d), rtol=0, atol=1e-3)
+
+
+def test_cli_run_on_the_card(dev, tmp_path):
+    """The sequence path on the card at a small size: GT supervision, GT
+    poses, BA, dumps, a checkpoint, and the resume."""
+    from edge_based_visual_odometry_tpu_torch import cli as CLI
+    from edge_based_visual_odometry_tpu_torch.io.datasets import StereoSample
+    seq = S.make_sequence(3, 120, 160)
+    cam = {"resolution": [160, 120], "intrinsics": [300.0, 300.0, 80.0, 60.0],
+           "distortion_coefficients": [0, 0, 0, 0]}
+    cfg = {"dataset_type": "ETH3D_stereo", "output_dir": str(tmp_path / "o"),
+           "left_camera": cam, "right_camera": cam,
+           "stereo": {"R21": [list(r) for r in seq.rig.R21],
+                      "T21": list(seq.rig.T21)}}
+    samples = [StereoSample(left=_u8(f.left), right=_u8(f.right),
+                            timestamp=float(k), gt_R=f.R.T,
+                            gt_t=-f.R.T @ f.t, file_idx=k,
+                            left_disparity=f.disparity)
+               for k, f in enumerate(seq.frames)]
+    flags = dict(device="cuda", max_edges=1024, use_gt_pose=True, ba_window=3,
+                 dump_stereo_pairs=True, dump_quads=True,
+                 record_filter_distributions=True,
+                 checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1)
+    CB.reset_launch_counts()
+    res = CLI.run(cfg, CLI.default_args(max_frames=2, **flags), samples)
+    assert res["frames"] == 2 and CB.LAUNCHES["toed_gradient_field"] == 2
+    res = CLI.run(cfg, CLI.default_args(**flags), samples)
+    assert res["frames"] == 3 and res["frames_processed"] == 1
+    pipe = res["pipe"]
+    assert pipe.trajectory[2].R.device.type == "cuda"
+    assert res["metrics"]["ate_rmse"] < 0.2
+    assert float(pipe.stereo_metrics_log[-1][-1, 1]) > 0.9
+    assert np.isfinite(pipe.temporal_metrics_log[-1]).all()
+    assert (tmp_path / "o" / "quads_frame_2.txt").exists()

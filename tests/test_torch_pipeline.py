@@ -5,9 +5,10 @@ small config). Per frame: edges within 0.998, mates and quads within
 inlier ratio > 0.3, ATE < 0.05 m, RPE < 0.05 m and < 1 deg), and their
 relative rotations differ by at most 0.1 deg under the production
 every_frame policy (the RANSAC draws differ: threefry vs
-torch.Generator)."""
+torch.Generator). What the port has not ported raises."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -84,19 +85,28 @@ def test_slice_matches_jax(policy):
         assert rpe_t < 0.05 and rpe_r < 1.0
 
 
-def test_unported_modes_raise():
+def test_unported_modes_raise(capsys):
+    """What is still unported says so: a BA mesh (multi-device) and the
+    CLI's --save_viz. GT supervision, GT poses, windowed BA and distorted
+    rigs are ported and construct."""
+    from edge_based_visual_odometry_tpu_torch import cli as CLI
     seq = S.make_sequence(1, 120, 160)
     cfg = VOConfig(**SMALL)
-    with pytest.raises(NotImplementedError):
-        PL.VOPipeline(seq.rig, cfg, ba_window=3)
-    for gt in (dict(has_gt_disparity=True), dict(use_gt_pose=True)):
-        with pytest.raises(NotImplementedError):
-            PL.VOPipeline(seq.rig, cfg, **gt)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        PL.VOPipeline(seq.rig, cfg, device="cpu", ba_window=3,
+                      ba_mesh=object())
+    with pytest.raises(SystemExit) as e:
+        CLI.parse_args(["-c", "cfg.yaml", "--save_viz"])
+    assert e.value.code != 0
+    assert "viz/) is not ported" in capsys.readouterr().err
     cam = dataclasses.replace(seq.rig.left, distortion=(0.1, 0.0, 0.0, 0.0))
-    with pytest.raises(NotImplementedError):
-        PL.VOPipeline(dataclasses.replace(seq.rig, left=cam), cfg)
+    for kw in (dict(ba_window=3), dict(has_gt_disparity=True),
+               dict(use_gt_pose=True),
+               dict(rig=dataclasses.replace(seq.rig, left=cam))):
+        kw = dict(dict(rig=seq.rig, cfg=cfg, device="cpu"), **kw)
+        assert PL.VOPipeline(**kw).frame_idx == 0
     with pytest.raises(ValueError):
-        PL.VOPipeline(seq.rig, cfg, keyframe_policy="sometimes")
+        PL.VOPipeline(seq.rig, cfg, device="cpu", keyframe_policy="sometimes")
 
 
 def test_default_device_is_cuda_and_needs_a_card(monkeypatch):
@@ -112,3 +122,10 @@ def test_default_device_is_cuda_and_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PL.build_temporal_step(seq.rig, cfg, "cuda")
     assert PL.VOPipeline(seq.rig, cfg, device="cpu").device.type == "cpu"
+    # the windowed BA is an entry of its own and holds to the same rule
+    from edge_based_visual_odometry_tpu_torch.models import window_ba as WBA
+    assert inspect.signature(WBA.WindowBA).parameters["device"].default \
+        == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WBA.WindowBA(seq.rig.left.K)
+    assert WBA.WindowBA(seq.rig.left.K, device="cpu").device.type == "cpu"

@@ -32,8 +32,20 @@ Phases (each passes or exits non-zero):
      from the reference package's reading at this width, the RANSAC
      constraint sweep, and K2 bit for bit against its twin on this path's
      remapped float frames;
-  9. a fourth production frame under `device_trace` (torch.profiler): the
-     kernels of a frame, their time on the card, the card's busy share.
+  9. the multi-device path: `parallel/mesh.py` under torch.distributed
+     with NCCL (world size 1): the sharded pair step on a batch of two
+     376x1241 frame pairs with distinct seeds, each pair's mates and quads
+     against the same frames through VOPipeline's steps, its pose error,
+     the all-reduced mean; the step timed; `analyze_production_memory`;
+ 9b. a cross-rank collective on the card: two spawned ranks on cuda:0 in
+     a gloo group (NCCL refuses two ranks on one GPU) split the windowed
+     BA of the 8-keyframe corridor chain, against one rank on the card;
+ 10. the corridor at reduced depth: `scripts/long_seq_validation_torch.py`
+     (cli.run, adaptive keyframes, BA window 5) on 25 frames of
+     `make_corridor_sequence` at 376x1241: no collapsed frame, a pose on
+     every frame, ATE under 5% of the GT path;
+last, a fourth production frame under `device_trace` (torch.profiler):
+the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
 the launches of each driven path), then as the last line
 {"ok": true, "device": {...}}.
@@ -51,6 +63,7 @@ import dataclasses
 import functools
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -68,6 +81,10 @@ PEAK_FLOPS_NO_FMA = PEAK_FLOPS / 2
 # phases 7-8 run `cli.run` with these flags on top of their own (the
 # defaults: the card, VOConfig() as it is)
 CLI_FLAGS = {"device": "cuda"}
+
+# frames of phase 10's corridor (the 100-frame run is
+# scripts/long_seq_validation_torch.py's default)
+N_CORRIDOR = 25
 
 # Floors of phase 8's temporal rows. At this width the reference package
 # itself reads 0.9537 after the gather (its window holds ~278 candidates a
@@ -523,6 +540,157 @@ def phase_evaluation(seq, card, work_dir, dev):
     return launches
 
 
+def phase_pair_step(seq, images, card, dev):
+    """Phase 9. Returns the kernel launches of the checked pair step."""
+    import torch.distributed as dist
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
+
+    cfg = VOConfig()
+    mesh = PM.init_distributed(device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              f"pair step: backend {dist.get_backend()}, {mesh.size()} ranks")
+        # two pairs, frames 0 -> 1 and 1 -> 2, seeds 0 and 1; each pair's
+        # prediction is its GT relative pose (what a running loop's
+        # velocity supplies)
+        pairs = [(0, 1), (1, 2)]
+        rel = []
+        for a, b in pairs:
+            R = seq.frames[b].R @ seq.frames[a].R.T
+            rel.append((R, seq.frames[b].t - R @ seq.frames[a].t))
+        stack = [torch.as_tensor(np.stack([images[p[i]][j] for p in pairs]),
+                                 device=dev) for i in (0, 1) for j in (0, 1)]
+        args = stack + [
+            torch.as_tensor(np.stack([r[0] for r in rel]), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(np.stack([r[1] for r in rel]), dtype=torch.float32,
+                            device=dev),
+            torch.tensor([0, 1], dtype=torch.int32)]
+
+        # the checked run records each pair's quads on the way
+        quads, temporal = [], PL.build_temporal_step
+
+        def recording(*a, **kw):
+            step = temporal(*a, **kw)
+
+            def run(*args):
+                tr = step(*args)
+                quads.append(int(tr.n_quads))
+                return tr
+            return run
+        PL.build_temporal_step = recording
+        try:
+            checked = PM.build_sharded_pair_step(seq.rig, cfg, mesh)
+        finally:
+            PL.build_temporal_step = temporal
+        torch.cuda.synchronize()
+        CB.reset_launch_counts()
+        out = checked(*args)
+        torch.cuda.synchronize()
+        launches = dict(CB.LAUNCHES)
+
+        # the same frames through VOPipeline's steps
+        pipe = PL.VOPipeline(seq.rig, cfg, device=dev)
+        rows = []
+        for i, (a, b) in enumerate(pairs):
+            fa = pipe._stereo_step(*images[a])
+            fb = pipe._stereo_step(*images[b])
+            tr = pipe._temporal_step(fa.mates, fa.frame, fb.mates, fb.frame,
+                                     args[4][i], args[5][i], i)
+            mine = (int(out.n_mates_kf[i]), int(out.n_mates_cf[i]), quads[i])
+            ref = (int(fa.mates.count), int(fb.mates.count), int(tr.n_quads))
+            for nm, u, v in zip(("kf mates", "cf mates", "quads"), mine, ref):
+                check(min(u, v) >= 0.97 * max(u, v),
+                      f"pair {i}: {nm} {u} vs {v} through VOPipeline's steps")
+            Rg, tg = rel[i]
+            dR = out.R[i].double().cpu().numpy() @ Rg.T
+            ang = float(np.degrees(np.arccos(np.clip(
+                (np.trace(dR) - 1) / 2, -1, 1))))
+            terr = float(np.linalg.norm(out.t[i].double().cpu().numpy() - tg))
+            check(ang < 0.2 and terr < 0.010,
+                  f"pair {i}: pose error {ang:.4f} deg / {terr * 1e3:.2f} mm")
+            rows.append(f"pair {pairs[i]}: mates {mine[0]}/{mine[1]} (steps "
+                        f"{ref[0]}/{ref[1]}), quads {mine[2]} ({ref[2]}), "
+                        f"inlier ratio {float(out.inlier_ratio[i]):.4f}, pose "
+                        f"err {ang:.4f} deg / {terr * 1e3:.2f} mm")
+        mean_rows = float(out.inlier_ratio.double().mean())
+        check(abs(float(out.mean_inlier_ratio) - mean_rows) <= 1e-6,
+              f"pair step: all-reduced mean {float(out.mean_inlier_ratio)} vs "
+              f"mean of the rows {mean_rows}")
+        print("pair step (NCCL, 1 rank, 2 pairs): " + "; ".join(rows)
+              + f"; all-reduced mean inlier ratio "
+              f"{float(out.mean_inlier_ratio):.6f}; launches {launches}")
+
+        step = PM.build_sharded_pair_step(seq.rig, cfg, mesh)
+        step(*args)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        print(f"sharded pair step, batch of 2 pairs 376x1241 on 1 rank: "
+              f"{', '.join(f'{x:.1f}' for x in times)} ms "
+              f"({2e3 / np.mean(times):.3f} frame pairs/s) [{card}]")
+
+        mem = PM.analyze_production_memory(1)
+        check(mem["fits_hbm"] and mem["peak_mib"] < mem["device_mib"],
+              f"production memory {mem}")
+        print("analyze_production_memory(1), one pair per device: "
+              + ", ".join(f"{k} {v:.1f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in mem.items())
+              + f" [{card}]")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_ba_ranks(card, work_dir):
+    """Phase 9b: the windowed BA split over two ranks on one card."""
+    from tests import torch_ranks as TR
+
+    t = time.perf_counter()
+    res = TR.spawn(TR.window_ba_worker, 2, pathlib.Path(work_dir), "cuda:0",
+                   timeout=300)
+    single = res[0]["single"]
+    diff = max(float(np.abs(a - b).max())
+               for r in res for a, b in zip(single, r["sharded"]))
+    check(len(single) == 8 and diff <= 1e-4,
+          f"sharded BA on the card: poses {diff:.3g} from one rank's")
+    print(f"sharded windowed BA, 2 gloo ranks on cuda:0, 8-keyframe corridor "
+          f"chain: every pose within {diff:.3g} of one rank's solve on the "
+          f"card ({time.perf_counter() - t:.1f} s with the spawn) [{card}]")
+
+
+def phase_corridor(card, work_dir):
+    """Phase 10. Returns its kernel launches."""
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from scripts import long_seq_validation_torch as LS
+
+    CB.reset_launch_counts()
+    rec = LS.main(["--n_frames", str(N_CORRIDOR),
+                   "--out", os.path.join(work_dir, "corridor")])
+    torch.cuda.synchronize()
+    launches = dict(CB.LAUNCHES)
+    check(rec["ate_rmse_m"] is not None, "corridor: a frame without a pose "
+                                         "(no metrics)")
+    check(not rec["collapsed_frames"] and not rec["frames_without_pose"],
+          f"corridor: collapsed {rec['collapsed_frames']}, without a pose "
+          f"{rec['frames_without_pose']}")
+    check(rec["ate_rmse_m"] < rec["ate_bound_m"] and rec["pass"],
+          f"corridor: ATE {rec['ate_rmse_m']} m, bound {rec['ate_bound_m']}")
+    print(f"corridor, {N_CORRIDOR} frames 376x1241, adaptive, BA window 5: "
+          f"ATE {rec['ate_rmse_m']:.5f} m of a {rec['ate_bound_m']} m bound "
+          f"(path {rec['gt_path_len_m']} m), RPE {rec['rpe_trans_m']:.5f} m / "
+          f"{rec['rpe_rot_deg']:.4f} deg, {rec['frames_per_s']:.3f} frames/s, "
+          f"BA {rec['ba']} [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -792,6 +960,11 @@ def main():
     by_path = {"frame": launches,
                "sequence": phase_sequence(seq, seq_images, card, work_dir),
                "evaluation": phase_evaluation(seq, card, work_dir, dev)}
+
+    # ---- 9, 9b, 10. multi-device pair step, sharded BA, corridor ----
+    by_path["pair_step"] = phase_pair_step(seq, seq_images, card, dev)
+    phase_ba_ranks(card, work_dir)
+    by_path["corridor"] = phase_corridor(card, work_dir)
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they

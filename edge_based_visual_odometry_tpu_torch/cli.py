@@ -57,8 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "distribution files (reference "
                          "RECORD_FILTER_DISTRIBUTIONS, definitions.h:61)")
     ap.add_argument("--save_viz", action="store_true",
-                    help="not available in the port: the offline analysis "
-                         "suite (viz/) is not ported; the flag is refused")
+                    help="render figures of every dump file into "
+                         "<output_dir>/viz (viz/, needs matplotlib)")
     ap.add_argument("--checkpoint_dir", default=None,
                     help="save/resume pipeline state here "
                          "(utils/checkpoint.py). An existing checkpoint is "
@@ -87,10 +87,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     work starts."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.save_viz:
-        ap.error("--save_viz: the offline analysis suite (viz/) is not "
-                 "ported; render the dump files with the reference's "
-                 "`python -m edge_based_visual_odometry_tpu.viz`")
     if args.ba_window >= 2 and args.keyframe_policy == "reference":
         ap.error("--ba_window >= 2 requires a re-keyframing policy "
                  "(--keyframe_policy every_frame|adaptive): windowed BA "
@@ -357,6 +353,11 @@ def run(cfg_yaml: dict, args: argparse.Namespace, samples,
             }
         with open(os.path.join(out_dir, "metrics.json"), "w") as f:
             json.dump(rec, f, indent=2)
+
+    if args.save_viz:
+        from edge_based_visual_odometry_tpu_torch.viz.__main__ import (
+            _render_all)
+        _render_all(out_dir, os.path.join(out_dir, "viz"))
     return {"pipe": pipe, "frames": n, "frames_processed": max(done, 0),
             "seconds": dt, "metrics": rec, "out_dir": out_dir}
 

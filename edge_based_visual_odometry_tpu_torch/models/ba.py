@@ -14,15 +14,23 @@ The blocks are accumulated over observations with `index_add_` /
 is not fixed, so two runs may differ in the last bits. The iterations run
 as a Python loop with no host synchronisation inside.
 
+Split over devices (`reduce=`, made by `all_reduce_sum`): each rank holds
+a block of the landmarks and the observations of those landmarks, so
+H_ll, b_l, W, H_ll^-1 and the back-substitution stay local; the pose
+blocks, the Schur term, the rhs correction and the two sums of the Huber
+cost are all-reduced once per iteration, and every rank solves the same
+reduced (6K, 6K) system, so the poses agree on every rank.
+
 Pose updates use a first-order SE(3) retraction; the first pose is gauge-
 fixed. Everything is float32.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from edge_based_visual_odometry_tpu_torch.geometry import skew
 from edge_based_visual_odometry_tpu_torch.geometry import so3_exp as _so3_exp
@@ -94,24 +102,49 @@ def _residuals_and_jacobians(p: BAProblem):
     return r, J_pose, J_lm
 
 
-def _huber_cost(p: BAProblem, r, huber: float):
-    """(weights, cost): Huber-weighted mean squared residual."""
+def _huber_terms(p: BAProblem, r, huber: float):
+    """(weights, weighted squared residual sum, weight sum): the Huber
+    cost is the second over the first clamped to >= 1."""
     rn = torch.linalg.norm(r, dim=-1)
     w_h = torch.where(rn <= huber, torch.ones_like(rn),
                       huber / torch.clamp(rn, min=1e-12))
     w = p.obs_w * w_h
-    return w, (w * rn * rn).sum() / torch.clamp(p.obs_w.sum(), min=1.0)
+    return w, (w * rn * rn).sum(), p.obs_w.sum()
 
 
-def ba_iteration(p: BAProblem, damping: float, huber: float):
-    """One damped GN step with Schur complement on landmarks."""
+def _cost(num, den):
+    return num / torch.clamp(den, min=1.0)
+
+
+Reduce = Callable[..., tuple]
+
+
+def all_reduce_sum(group) -> Reduce:
+    """`reduce` for a BA split over the ranks of `group`: sums its tensors
+    over the ranks with one flat all_reduce (they share a dtype)."""
+    def reduce(*ts):
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        out, i = [], 0
+        for t in ts:
+            out.append(flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
+        return tuple(out)
+    return reduce
+
+
+def ba_iteration(p: BAProblem, damping: float, huber: float,
+                 reduce: Optional[Reduce] = None):
+    """One damped GN step with Schur complement on landmarks. `reduce`:
+    sums the landmark-axis partial sums over the ranks that split the
+    landmarks (see the module docstring); None on one device."""
     Kn = p.R.shape[0]
     L = p.X.shape[0]
     dev, dt = p.X.device, p.X.dtype
     kf = p.obs_kf.long()
     lm = p.obs_lm.long()
     r, J_pose, J_lm = _residuals_and_jacobians(p)
-    w, cost = _huber_cost(p, r, huber)
+    w, c_num, c_den = _huber_terms(p, r, huber)
 
     # --- blocks via scatter-adds over observations ---
     JtJ_pp = torch.zeros((Kn, 6, 6), device=dev, dtype=dt).index_add_(
@@ -141,11 +174,15 @@ def ba_iteration(p: BAProblem, damping: float, huber: float):
     # --- Schur complement (both einsums reduce over the landmark axis) ---
     WHinv = torch.einsum("lkab,lbc->lkac", Wc, H_ll_inv)     # (L, K, 6, 3)
     S_cross = torch.einsum("lkac,lqbc->kaqb", WHinv, Wc)     # (K, 6, K, 6)
+    rhs_corr = torch.einsum("lkac,lc->ka", WHinv, b_l)
+    if reduce is not None:
+        JtJ_pp, b_p, S_cross, rhs_corr, c_num, c_den = reduce(
+            JtJ_pp, b_p, S_cross, rhs_corr, c_num, c_den)
     diag = torch.arange(Kn, device=dev)
     S = torch.zeros((Kn, 6, Kn, 6), device=dev, dtype=dt)
     S[diag, :, diag, :] += JtJ_pp + lam * eye6[None]
     S = S - S_cross
-    rhs = b_p - torch.einsum("lkac,lc->ka", WHinv, b_l)
+    rhs = b_p - rhs_corr
 
     # gauge fix: freeze pose 0 with a strong prior
     S[0, :, 0, :] += 1e8 * eye6
@@ -159,18 +196,22 @@ def ba_iteration(p: BAProblem, damping: float, huber: float):
     dR = _so3_exp(dp[:, :3])
     R_new = torch.einsum("kij,kjl->kil", dR, p.R)
     t_new = torch.einsum("kij,kj->ki", dR, p.t) + dp[:, 3:]
-    return p._replace(R=R_new, t=t_new, X=p.X + dl), cost
+    return p._replace(R=R_new, t=t_new, X=p.X + dl), _cost(c_num, c_den)
 
 
 def run_ba(p: BAProblem, n_iters: int = 10, damping: float = 1e-4,
-           huber: float = 2.0) -> BAResult:
-    """Fixed-iteration windowed BA; no host synchronisation inside."""
+           huber: float = 2.0, reduce: Optional[Reduce] = None) -> BAResult:
+    """Fixed-iteration windowed BA; no host synchronisation inside.
+    `reduce` (see `ba_iteration`): X stays this rank's landmark block."""
     costs = []
     for _ in range(n_iters):
-        p, cost = ba_iteration(p, damping, huber)
+        p, cost = ba_iteration(p, damping, huber, reduce)
         costs.append(cost)
     # Huber-weight the final entry exactly like the per-iteration costs,
     # so cost_history is a comparable series end to end
     r, _, _ = _residuals_and_jacobians(p)
-    costs.append(_huber_cost(p, r, huber)[1])
+    _, num, den = _huber_terms(p, r, huber)
+    if reduce is not None:
+        num, den = reduce(num, den)
+    costs.append(_cost(num, den))
     return BAResult(R=p.R, t=p.t, X=p.X, cost_history=torch.stack(costs))

@@ -67,7 +67,8 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                       has_gt: bool = False,
                       record_distributions: bool = False):
     """fn(left, right[, disparity, occlusion][, gn_capture]) ->
-    FrameResult; images (H, W) numpy or tensors, uint8 or float. A camera
+    FrameResult; images (H, W) numpy or tensors on any device, uint8 or
+    float. A camera
     with non-zero distortion coefficients is undistorted on the device
     first. `has_gt`: the step takes the GT disparity map and the
     non-occlusion mask and supervises the cascade with them."""
@@ -84,9 +85,10 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
 
     def step(left, right, disparity=None, occlusion=None,
              gn_capture=None) -> FrameResult:
-        both = torch.stack([torch.as_tensor(np.asarray(left)),
-                            torch.as_tensor(np.asarray(right))]).to(
-            device=device, dtype=torch.float32)
+        both = torch.stack([
+            a.to(device) if torch.is_tensor(a) else torch.as_tensor(
+                np.asarray(a)).to(device) for a in (left, right)]).to(
+            dtype=torch.float32)
         if dists[0] is not None or dists[1] is not None:
             both = torch.stack([
                 img if d is None else IMG.undistort(img, K, d)

@@ -18,10 +18,12 @@ np.unique, and window assembly is one flattened (keyframe, slot) pass.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from edge_based_visual_odometry_tpu_torch import geometry as geom
 from edge_based_visual_odometry_tpu_torch.models import ba as BA
@@ -55,18 +57,22 @@ class WindowBAConfig:
 class WindowBA:
     """Accumulates keyframe poses + landmark tracks; runs windowed BA on
     `device`: "cuda" (the default) raises where no CUDA device exists,
-    "cpu" is for callers that ask for it. The reference's `mesh` argument
-    (landmark and observation axes sharded over several devices) is not
-    ported: passing one raises.
+    "cpu" is for callers that ask for it.
+
+    `mesh`: optional 1-D `DeviceMesh` (parallel/mesh.py) whose ranks share
+    the solve. Rank 0 of the mesh assembles the window problem on the host
+    and broadcasts it, so ranks whose VO loops run on different devices
+    solve one problem; each rank takes a contiguous block of the landmarks
+    with their observations, and the Schur-complement sums are all-reduced
+    once per iteration (models/ba.py). Every rank calls `run` once per
+    keyframe, as VO loops in lockstep do, and gets the same poses back.
+    The landmarks are never gathered: `run` returns only poses and costs.
     """
 
     def __init__(self, K_cam: np.ndarray, cfg: WindowBAConfig = WindowBAConfig(),
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "WindowBA(mesh=...): the multi-device BA solve is not "
-                "ported (ROADMAP queue 1 item 8)")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.K_cam = np.asarray(K_cam, np.float32)
         self._next_track = 0
@@ -142,8 +148,80 @@ class WindowBA:
         (poses_w2c list of geom.Pose, info dict) or None if the window is
         too small. info includes host-assembly wall time so longseq runs
         can assert bookkeeping < solve cost."""
-        import time
         t_host0 = time.perf_counter()
+        if self.mesh is None:
+            prob = self._assemble()
+        else:
+            group = self.mesh.get_group()
+            box = [self._assemble() if self.mesh.get_local_rank() == 0
+                   else None]
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group,
+                device=self.device if dist.get_backend(group) == "nccl"
+                else None)
+            prob = box[0]
+        if prob is None:
+            return None
+        Kn, L, n_obs = prob["Kn"], prob["L"], prob["n_obs"]
+        if len(self.kf_poses) != Kn:
+            raise RuntimeError(
+                f"WindowBA: this rank's window holds {len(self.kf_poses)} "
+                f"keyframes, the mesh's rank 0 solves {Kn}: the ranks' VO "
+                f"loops are out of step")
+        reduce = (None if self.mesh is None
+                  else BA.all_reduce_sum(self.mesh.get_group()))
+        arrays = self._local_block(prob)
+        host_assembly_s = time.perf_counter() - t_host0
+        ba_prob = self._problem(prob, *arrays)
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_solve0 = time.perf_counter()
+        res = BA.run_ba(ba_prob, n_iters=self.cfg.n_iters,
+                        damping=self.cfg.damping, huber=self.cfg.huber,
+                        reduce=reduce)
+        # one transfer of the result to the host; it also ends the solve
+        out = torch.cat([res.R[:Kn].reshape(-1), res.t[:Kn].reshape(-1),
+                         res.cost_history]).cpu().numpy()
+        solve_s = time.perf_counter() - t_solve0
+        R_all = out[:9 * Kn].reshape(Kn, 3, 3)
+        t_all = out[9 * Kn:12 * Kn].reshape(Kn, 3)
+        cost = out[12 * Kn:]
+
+        # a diverged solve (ill-conditioned Schur system) must not poison
+        # the odometry: reject non-finite results and keep the incoming
+        # poses (the VO loop treats None as "no BA correction")
+        if not (np.isfinite(R_all).all() and np.isfinite(t_all).all()
+                and np.isfinite(float(cost[-1]))):
+            import warnings
+            warnings.warn("WindowBA: solve diverged (non-finite result); "
+                          "keeping odometry poses", stacklevel=2)
+            return None
+
+        poses = []
+        for k in range(Kn):
+            T = np.eye(4)
+            T[:3, :3] = R_all[k].astype(np.float64)
+            T[:3, 3] = t_all[k].astype(np.float64)
+            self.kf_poses[k] = T
+            poses.append(geom.Pose(self._dev(R_all[k]), self._dev(t_all[k])))
+        info = {
+            "n_landmarks": L,
+            "n_obs": n_obs,
+            "cost": cost,
+            "host_assembly_s": host_assembly_s,
+            "solve_s": solve_s,
+        }
+        return poses, info
+
+    def _dev(self, a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _assemble(self) -> Optional[dict]:
+        """The window problem as host arrays, or None if too small: poses
+        R (K, 3, 3), t (K, 3); landmark initial positions X0 (L, 3); per
+        observation its keyframe kk, landmark li (ascending track id),
+        pixel uv and edge normal nrm (k-major, slot-ascending)."""
         Kn = len(self.kf_poses)
         if Kn < 2:
             return None
@@ -183,15 +261,13 @@ class WindowBA:
             warnings.warn(
                 f"WindowBA: truncating {n_obs} observations to "
                 f"max_obs={self.cfg.max_obs}; raise WindowBAConfig.max_obs "
-                f"to use all tracks", stacklevel=2)
+                f"to use all tracks", stacklevel=3)
             kk, ss, li = kk[: self.cfg.max_obs], ss[: self.cfg.max_obs], \
                 li[: self.cfg.max_obs]
             n_obs = self.cfg.max_obs
 
         uvs = np.stack(self.kf_uv)               # (K, M, 2)
         nrm = np.stack(self.kf_normal)
-        obs_uv = uvs[kk, ss]
-        obs_n = nrm[kk, ss]
 
         # ---- landmark init: FIRST (earliest-keyframe) observation's
         # stereo triangulation lifted to world. Reverse fancy assignment
@@ -203,79 +279,36 @@ class WindowBA:
         Tinv = np.linalg.inv(np.stack(self.kf_poses))   # (K, 4, 4)
         Ti = Tinv[kk[first]]
         X0 = np.einsum("lij,lj->li", Ti[:, :3, :3], g0) + Ti[:, :3, 3]
+        poses = np.stack(self.kf_poses)
+        return {"Kn": Kn, "L": L, "n_obs": n_obs,
+                "R": poses[:, :3, :3], "t": poses[:, :3, 3], "X0": X0,
+                "kk": kk, "li": li, "uv": uvs[kk, ss], "nrm": nrm[kk, ss]}
 
-        # pad to static shapes (same problem size every keyframe)
-        Lp = self.cfg.max_landmarks
-        Op = self.cfg.max_obs
-        X_pad = np.full((Lp, 3), 5.0)
-        X_pad[:L] = X0
-        kf_pad = np.zeros(Op, np.int32)
-        lm_pad = np.zeros(Op, np.int32)
-        uv_pad = np.zeros((Op, 2), np.float32)
-        w_pad = np.zeros(Op, np.float32)
-        n_pad = np.zeros((Op, 2), np.float32)
-        n_pad[:, 1] = 1.0
-        kf_pad[:n_obs] = kk
-        lm_pad[:n_obs] = li
-        uv_pad[:n_obs] = obs_uv
-        n_pad[:n_obs] = obs_n
-        w_pad[:n_obs] = 1.0
-        host_assembly_s = time.perf_counter() - t_host0
+    def _problem(self, prob, X, kk, li, uv, nrm, w) -> BA.BAProblem:
+        return BA.BAProblem(
+            R=self._dev(prob["R"]), t=self._dev(prob["t"]), X=self._dev(X),
+            obs_kf=self._dev(kk, torch.int64),
+            obs_lm=self._dev(li, torch.int64), obs_uv=self._dev(uv),
+            obs_w=self._dev(w), K_cam=self._dev(self.K_cam),
+            X_prior=self._dev(X), prior_w=self._dev(self.cfg.prior_weight),
+            obs_n=self._dev(nrm))
 
-        def dev(a, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
-
-        prob = BA.BAProblem(
-            R=dev(np.stack([T[:3, :3] for T in self.kf_poses])),
-            t=dev(np.stack([T[:3, 3] for T in self.kf_poses])),
-            X=dev(X_pad),
-            obs_kf=dev(kf_pad, torch.int64),
-            obs_lm=dev(lm_pad, torch.int64),
-            obs_uv=dev(uv_pad),
-            obs_w=dev(w_pad),
-            K_cam=dev(self.K_cam),
-            X_prior=dev(X_pad),
-            prior_w=dev(self.cfg.prior_weight),
-            obs_n=dev(n_pad))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_solve0 = time.perf_counter()
-        res = BA.run_ba(prob, n_iters=self.cfg.n_iters,
-                        damping=self.cfg.damping, huber=self.cfg.huber)
-        # one transfer of the result to the host; it also ends the solve
-        out = torch.cat([res.R[:Kn].reshape(-1), res.t[:Kn].reshape(-1),
-                         res.cost_history]).cpu().numpy()
-        solve_s = time.perf_counter() - t_solve0
-        R_all = out[:9 * Kn].reshape(Kn, 3, 3)
-        t_all = out[9 * Kn:12 * Kn].reshape(Kn, 3)
-        cost = out[12 * Kn:]
-
-        # a diverged solve (ill-conditioned Schur system) must not poison
-        # the odometry: reject non-finite results and keep the incoming
-        # poses (the VO loop treats None as "no BA correction")
-        if not (np.isfinite(R_all).all() and np.isfinite(t_all).all()
-                and np.isfinite(float(cost[-1]))):
-            import warnings
-            warnings.warn("WindowBA: solve diverged (non-finite result); "
-                          "keeping odometry poses", stacklevel=2)
-            return None
-
-        poses = []
-        for k in range(Kn):
-            T = np.eye(4)
-            T[:3, :3] = R_all[k].astype(np.float64)
-            T[:3, 3] = t_all[k].astype(np.float64)
-            self.kf_poses[k] = T
-            poses.append(geom.Pose(dev(R_all[k]), dev(t_all[k])))
-        info = {
-            "n_landmarks": L,
-            "n_obs": n_obs,
-            "cost": cost,
-            "host_assembly_s": host_assembly_s,
-            "solve_s": solve_s,
-        }
-        return poses, info
+    def _local_block(self, prob):
+        """(X, kk, li, uv, nrm, w) of this rank's contiguous block of
+        ceil(L / ranks) landmarks and the observations of those landmarks
+        (their order kept), with landmark indices local to the block; on
+        one device, the whole problem. Nothing is padded to the
+        capacities: a weight-0 observation or an unobserved landmark
+        would change no sum."""
+        L = prob["L"]
+        n_ranks, rank = ((1, 0) if self.mesh is None
+                         else (self.mesh.size(), self.mesh.get_local_rank()))
+        block = -(-L // n_ranks)
+        lo, hi = min(rank * block, L), min((rank + 1) * block, L)
+        li = prob["li"]
+        m = (li >= lo) & (li < hi)
+        return (prob["X0"][lo:hi], prob["kk"][m], li[m] - lo, prob["uv"][m],
+                prob["nrm"][m], np.ones(int(m.sum()), np.float32))
 
 
 def best_links_from_quads(tr) -> np.ndarray:

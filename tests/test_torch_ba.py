@@ -5,10 +5,14 @@
     the landmark prior: poses within 1e-4, `cost_history` rtol 1e-3 (the
     cases without the prior at damping 1.0, see the test);
   - `WindowBA.run` on the same three keyframes: same landmark and
-    observation census, poses within 1e-4;
+    observation census, poses within 1e-4; on a mesh of one rank, the
+    single solve's poses within 1e-5;
   - `VOPipeline(ba_window=3)` over 3 frames, `every_frame` and `adaptive`:
     trajectories within 0.1 deg / 5 mm of the reference's (the RANSAC draws
-    differ), and the write-back under sparse keyframes.
+    differ), and the write-back under sparse keyframes;
+  - the 24-keyframe corridor chain of tests/test_window_ba_drift.py
+    (tests/torch_ranks.py): the port's BA at least 30% below the raw
+    chain's ATE.
 """
 
 import numpy as np
@@ -200,8 +204,27 @@ def test_window_ba_run_matches_jax():
         np.testing.assert_allclose(p.R.numpy(), np.asarray(jp.R), atol=1e-4)
         np.testing.assert_allclose(p.t.numpy(), np.asarray(jp.t), atol=1e-4)
         np.testing.assert_allclose(T[:3, 3], p.t.numpy(), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        WBA.WindowBA(K_CAM, mesh=object())
+    # the same window on a mesh of one rank (the sharded solve's path:
+    # broadcast, one landmark block, all-reduced sums) gives the same poses
+    import torch.distributed as dist
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
+    mesh = PM.init_distributed(device="cpu")
+    try:
+        mwba = WBA.WindowBA(K_CAM, WBA.WindowBAConfig(**cfg_kw), mesh=mesh,
+                            device="cpu")
+        for k, (mates, R, t) in enumerate(_keyframes()):
+            mwba.add_keyframe(mates, GEO.Pose(torch.from_numpy(R.copy()),
+                                              torch.from_numpy(np.asarray(t))),
+                              links if k else None)
+        mposes, minfo = mwba.run()
+    finally:
+        dist.destroy_process_group()
+    assert (minfo["n_landmarks"], minfo["n_obs"]) == (info["n_landmarks"],
+                                                      info["n_obs"])
+    np.testing.assert_allclose(minfo["cost"], info["cost"], rtol=1e-5)
+    for p, mp in zip(poses, mposes):
+        np.testing.assert_allclose(mp.R.numpy(), p.R.numpy(), atol=1e-5)
+        np.testing.assert_allclose(mp.t.numpy(), p.t.numpy(), atol=1e-5)
 
 
 def test_best_links_from_quads_matches_jax():
@@ -300,3 +323,19 @@ class _NoLinks:
             cmask=torch.zeros((M, Cq), dtype=torch.bool),
             ncc_l=torch.zeros((M, Cq)),
             cf_idx=torch.zeros((M, Cq), dtype=torch.int64))
+
+
+def test_window_ba_reduces_drift():
+    """The port's counterpart of test_window_ba_drift.py's
+    test_window_ba_reduces_drift: sliding-window BA applied as VOPipeline
+    applies it must cut the noisy chain's ATE below 0.7x."""
+    from tests import torch_ranks as TR
+    _, poses_gt, frames, rels = TR.make_corridor()
+    raw = TR.run_chain(frames, rels, poses_gt, None)
+    wba = WBA.WindowBA(TR.K_CAM, WBA.WindowBAConfig(
+        window=6, max_landmarks=512, max_obs=4096, n_iters=6), device="cpu")
+    ba = TR.run_chain(frames, rels, poses_gt, wba)
+    ate_raw, ate_ba = TR.ate(raw, poses_gt), TR.ate(ba, poses_gt)
+    # the raw chain must actually drift for the test to mean anything
+    assert ate_raw > 0.05, f"fixture too easy: raw ATE {ate_raw}"
+    assert ate_ba < 0.7 * ate_raw, f"BA ATE {ate_ba:.4f} vs raw {ate_raw:.4f}"

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain-PyTorch twins, on the
-card. Every test here needs a CUDA device (marker `gpu`) and skips
-without one. The file imports no JAX, so it also runs where JAX is not
-installed:
+card, and the paths through them (the pipeline, BA, the CLI, the NCCL pair
+step and its production memory). Every test here needs a CUDA device
+(marker `gpu`) and skips without one. The file imports no JAX, so it also
+runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -326,3 +327,67 @@ def test_cli_run_on_the_card(dev, tmp_path):
     assert float(pipe.stereo_metrics_log[-1][-1, 1]) > 0.9
     assert np.isfinite(pipe.temporal_metrics_log[-1]).all()
     assert (tmp_path / "o" / "quads_frame_2.txt").exists()
+
+
+def test_analyze_production_memory(dev):
+    """One pair step at 376x1241 with VOConfig() fits the card; the
+    arguments are the four float32 images and the prediction."""
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
+    r = PM.analyze_production_memory(1)
+    assert r["fits_hbm"] and r["peak_mib"] < r["device_mib"], r
+    # the analysis saw a real program: the step's own peak
+    assert r["temp_mib"] > 100, r
+    assert abs(r["argument_mib"] * 2 ** 20
+               - (4 * 376 * 1241 * 4 + 9 * 4 + 3 * 4 + 4)) < 1, r
+
+
+def test_nccl_pair_step_world_size_1(dev):
+    """The sharded pair step on a one-rank NCCL group: both kernels launch
+    for every stereo step, the mates agree with the CPU pair step, the
+    all-reduced mean is the mean of the rows."""
+    import torch.distributed as dist
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
+    seq = S.make_sequence(3, 120, 160)
+    cfg = VOConfig(**SMALL)
+    frames = [(_u8(f.left), _u8(f.right)) for f in seq.frames]
+    pairs = [(0, 1), (1, 2)]
+    args = [np.stack([frames[p[i]][j] for p in pairs])
+            for i in (0, 1) for j in (0, 1)]
+    args += [np.stack([np.eye(3, dtype=np.float32)] * 2),
+             np.zeros((2, 3), np.float32), np.array([3, 4])]
+    mesh = PM.init_distributed(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        step = PM.build_sharded_pair_step(seq.rig, cfg, mesh)
+        CB.reset_launch_counts()
+        out = step(*args)
+        torch.cuda.synchronize()
+        assert CB.LAUNCHES["toed_gradient_field"] == 4
+        assert CB.LAUNCHES["refine_along_epipolar"] >= 4
+    finally:
+        dist.destroy_process_group()
+    assert out.R.device.type == "cuda" and out.R.shape == (2, 3, 3)
+    torch.testing.assert_close(out.mean_inlier_ratio,
+                               out.inlier_ratio.mean(), rtol=0, atol=1e-6)
+    one = PM.build_pair_step(seq.rig, cfg, "cpu")
+    for i in range(2):
+        ref = one(*(a[i] for a in args))
+        for u, v in ((out.n_mates_kf[i], ref[3]), (out.n_mates_cf[i], ref[4])):
+            assert min(int(u), int(v)) >= 0.97 * max(int(u), int(v))
+        assert float(out.inlier_ratio[i]) > 0.3
+
+
+def test_window_ba_sharded_over_nccl_ranks(dev, tmp_path):
+    """One rank per visible card in an NCCL group split the windowed BA of
+    the 8-keyframe corridor chain; every rank's poses within 1e-4 of one
+    card's solve. Needs two cards or more."""
+    from tests import torch_ranks as TR
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    res = TR.spawn(TR.window_ba_worker, n, tmp_path, None,
+                   str(tmp_path / "store"), init=False, timeout=300)
+    assert [r["device"] for r in res] == [f"cuda:{k}" for k in range(n)]
+    for r in res:
+        for a, b in zip(res[0]["single"], r["sharded"]):
+            np.testing.assert_allclose(a, b, atol=1e-4)

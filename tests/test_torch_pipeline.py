@@ -5,7 +5,7 @@ small config). Per frame: edges within 0.998, mates and quads within
 inlier ratio > 0.3, ATE < 0.05 m, RPE < 0.05 m and < 1 deg), and their
 relative rotations differ by at most 0.1 deg under the production
 every_frame policy (the RANSAC draws differ: threefry vs
-torch.Generator). What the port has not ported raises."""
+torch.Generator). Every mode of the reference constructs."""
 
 import dataclasses
 import inspect
@@ -86,19 +86,23 @@ def test_slice_matches_jax(policy):
 
 
 def test_unported_modes_raise(capsys):
-    """What is still unported says so: a BA mesh (multi-device) and the
-    CLI's --save_viz. GT supervision, GT poses, windowed BA and distorted
-    rigs are ported and construct."""
+    """Nothing of the reference is left refused: a BA mesh (multi-device)
+    constructs on a process group, and the CLI parses --save_viz. GT
+    supervision, GT poses, windowed BA and distorted rigs construct; an
+    unknown keyframe policy still raises."""
+    import torch.distributed as dist
     from edge_based_visual_odometry_tpu_torch import cli as CLI
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
     seq = S.make_sequence(1, 120, 160)
     cfg = VOConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        PL.VOPipeline(seq.rig, cfg, device="cpu", ba_window=3,
-                      ba_mesh=object())
-    with pytest.raises(SystemExit) as e:
-        CLI.parse_args(["-c", "cfg.yaml", "--save_viz"])
-    assert e.value.code != 0
-    assert "viz/) is not ported" in capsys.readouterr().err
+    mesh = PM.init_distributed(device="cpu")
+    try:
+        pipe = PL.VOPipeline(seq.rig, cfg, device="cpu", ba_window=3,
+                             ba_mesh=mesh)
+        assert pipe.wba.mesh is mesh
+    finally:
+        dist.destroy_process_group()
+    assert CLI.parse_args(["-c", "cfg.yaml", "--save_viz"]).save_viz
     cam = dataclasses.replace(seq.rig.left, distortion=(0.1, 0.0, 0.0, 0.0))
     for kw in (dict(ba_window=3), dict(has_gt_disparity=True),
                dict(use_gt_pose=True),

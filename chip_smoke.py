@@ -17,7 +17,12 @@ Phases (each passes or exits non-zero):
      on a small 120x160 sequence;
   6. the production frame: VOPipeline(VOConfig(), every_frame) over the 3
      frames, with launch counts, workload and pose-error checks, the
-     steps timed by `StageTimer`;
+     steps timed by `StageTimer`; then the prediction-mode temporal step
+     of frame 2 again, 3 times, each stage of it timed (synchronised);
+ 6b. K3 (2-DoF KF -> CF GN) vs its plain twin, bit for bit, on the
+     operands frame 2's temporal step gave it, both sides: as one
+     20-iteration launch and as the pipeline's two phases; each form
+     timed beside its bound, and the twin timed;
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -53,9 +58,9 @@ the launches of each driven path), then as the last line
 The bound of a kernel is the least time the card could take for its
 work: the larger of its operations over the float32 peak and its bytes
 (each input read once, each output written once) over the memory rate.
-K2's arithmetic is FMA-free (each multiply and add rounds on its own, to
-stay bit-equal to its twin), so it can reach at most half the FMA peak;
-its line also gives the bound at that rate (`bound_ms_no_fma`).
+K2's and K3's arithmetic is FMA-free (each multiply and add rounds on its
+own, to stay bit-equal to the twin), so they can reach at most half the
+FMA peak; their lines also give the bound at that rate (`bound_ms_no_fma`).
 The counting functions below need no GPU (tests/test_torch_bounds.py).
 """
 
@@ -113,6 +118,19 @@ K2_ITER_FLOPS = 12
 K2_LANE_IN_BYTES = 6 * 4 + 2 * 4 + 1    # lx ly theta rx ry alpha0, epi, active
 K2_LANE_OUT_BYTES = 3 * 4 + 1 + 4 + 1   # alpha score conf, valid, iters, done
 
+# K3 (csrc/gn_2dof.cu), counted from its code, per sample of the 2 P^2
+# (abs and selects not counted): once per lane the KF sample (4 offset,
+# 6 coordinate, 22 tap, 9 bilinear, 1 mean, 1 centring) and the 4 CF
+# offsets; per iteration the CF sample (6 coordinate, 22 tap, 3 x 9
+# bilinear, 1 mean, 2 residual, 2 weight, 15 for the six sums) plus 28
+# scalar flops (centre, means, reg, 2x2 solve, rms, |step|, confidence,
+# update).
+K3_ONCE_SAMPLE_FLOPS = 47
+K3_SAMPLE_FLOPS = 75
+K3_ITER_FLOPS = 28
+K3_LANE_IN_BYTES = 6 * 4 + 2 * 4 + 1    # kx ky kt cx cy ct, d0, active
+K3_LANE_OUT_BYTES = 4 * 4 + 1 + 4 + 1   # d score conf, valid, iters, done
+
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """Least time in ms for `flops` and `nbytes` on the card, and what
@@ -139,6 +157,18 @@ def k2_work(iters_run, active, patch_size, H, W):
     flops = (int(np.count_nonzero(active)) * n * K2_LEFT_SAMPLE_FLOPS
              + int(iters_run.sum()) * (n * K2_SAMPLE_FLOPS + K2_ITER_FLOPS))
     nbytes = 4 * H * W * 4 + B * (K2_LANE_IN_BYTES + K2_LANE_OUT_BYTES)
+    return flops, nbytes
+
+
+def k3_work(iters_run, active, patch_size, H, W):
+    """(flops, bytes) of one K3 launch over B lanes: `iters_run` the
+    iterations each lane ran in it, `active` the lanes it refined."""
+    n = 2 * patch_size * patch_size
+    iters_run = np.asarray(iters_run, np.int64)
+    B = iters_run.shape[0]
+    flops = (int(np.count_nonzero(active)) * n * K3_ONCE_SAMPLE_FLOPS
+             + int(iters_run.sum()) * (n * K3_SAMPLE_FLOPS + K3_ITER_FLOPS))
+    nbytes = 4 * H * W * 4 + B * (K3_LANE_IN_BYTES + K3_LANE_OUT_BYTES)
     return flops, nbytes
 
 
@@ -176,13 +206,74 @@ def with_bound(ms, flops, nbytes, fma_free=False):
 
 
 def same_lanes(x, y, mask, what):
-    """Fail unless two K2 results (alpha, score, conf, valid, iters, done)
-    are bit-equal on the lanes of `mask`."""
-    for nm, u, v in zip(("alpha", "score", "conf", "valid", "iters", "done"),
+    """Fail unless two GN results (delta, score, conf, valid, iters, done)
+    are bit-equal on the lanes of `mask`; a NaN equals a NaN (a 2-DoF lane
+    whose normal equations went singular carries NaN in both)."""
+    for nm, u, v in zip(("delta", "score", "conf", "valid", "iters", "done"),
                         x, y):
-        n_bad = int((u != v)[mask].sum())
-        check(n_bad == 0, f"K2 {what}: {nm} differs on {n_bad} of "
+        ne = u != v
+        if u.is_floating_point():
+            ne &= ~(u.isnan() & v.isnan())
+        if ne.dim() == 2:
+            ne = ne.any(-1)
+        n_bad = int(ne[mask].sum())
+        check(n_bad == 0, f"{what}: {nm} differs on {n_bad} of "
                           f"{int(mask.sum())} active lanes")
+
+
+def recorder(fn, imgs, gn_kw, calls, **extra):
+    """A `_two_phase` run that launches `fn` on the maps `imgs` and keeps
+    each launch's operands in `calls`."""
+    def run(args, delta0, it0, it_stop, active):
+        calls.append((args, delta0, it0, it_stop, active))
+        return fn(*imgs, *args, delta0, active, it0, it_stop, **gn_kw,
+                  **extra)
+    return run
+
+
+def gn_forms(launch, forms, work, P, H, W):
+    """Time each form (args, delta0, it0, it_stop, active) of a GN kernel
+    with CUDA events; its bound from the iterations each lane ran."""
+    rows = {}
+    for form, (args, d0, it0, it_stop, fact) in forms.items():
+        def run():
+            return launch(args, d0, it0, it_stop, fact)
+        res, _ = run()
+        run_it = (res.iters.long() - it0).clamp(min=0) * fact
+        w = work(run_it.cpu().numpy(), fact.cpu().numpy(), P, H, W)
+        row = with_bound(cuda_ms(run, 20), *w, fma_free=True)
+        row.update(lanes=int(fact.shape[0]), active=int(fact.sum()),
+                   iterations=int(run_it.sum()))
+        rows[form] = row
+    return rows
+
+
+def temporal_split(step, args, reps=3):
+    """Per-stage ms of one temporal step, mean of `reps` runs, each stage
+    timed with the card synchronised before and after it."""
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
+
+    stages = ((TM, "match_temporal", "match_temporal"),
+              (GN, "refine_2dof_batch", "refine_2dof_batch (2 sides)"),
+              (CL, "cluster_edges", "cluster_edges"),
+              (TM, "_row_chunked", "dense NCC + descriptor gates"),
+              (MT, "lift_quads", "lift_quads"),
+              (MT, "estimate_pose", "estimate_pose"))
+    timer = TIM.StageTimer()
+    saved = [(m, n, getattr(m, n)) for m, n, _ in stages]
+    try:
+        for (m, n, fn), (_, _, label) in zip(saved, stages):
+            setattr(m, n, functools.partial(timer.timed, label, fn))
+        for _ in range(reps):
+            timer.timed("temporal step", step, *args)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return {n: sum(ts) / reps * 1e3 for n, ts in timer.times.items()}
 
 
 def u8(a):
@@ -261,6 +352,86 @@ def traj_arrays(pipe):
             torch.stack([p.t for p in pipe.trajectory]).double().cpu().numpy())
 
 
+def phase_k3(k3_ops, card, H, W):
+    """Phase 6b: K3 against its twin on the recorded operands of the two
+    sides of one temporal step, `k3_ops` the (args, kwargs) of each
+    `refine_2dof_batch` call; timed. Returns the kernel's JSON entry."""
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    k3, k3_err, k3_plain = {}, 0.0, {}
+    for side, (a3, kw3) in zip(("left", "right"), k3_ops):
+        act3 = kw3["active"]
+        B3 = act3.shape[0]
+        P3, mi3 = kw3["patch_size"], kw3["max_iter"]
+        g3 = dict(patch_size=P3, max_iter=mi3, tol=kw3["tol"],
+                  huber_delta=kw3["huber_delta"], tile=kw3["tile"])
+        imgs3 = a3[:4]
+        lanes3 = tuple(t.contiguous() for t in a3[4:])
+        d03 = torch.stack([a3[4] - a3[7], a3[5] - a3[8]], -1)
+        maps43 = GN.interleave_maps(*imgs3[1:])
+        rk, dk = GN.refine_2dof_cuda(*imgs3, *lanes3, d03, act3, 0, mi3,
+                                     maps4=maps43, **g3)
+        rp, dp = GN.refine_2dof_plain(*imgs3, *lanes3, d03, act3, 0, mi3,
+                                      **g3)
+        torch.cuda.synchronize()
+        same_lanes((*rk, dk), (*rp, dp), act3,
+                   f"K3 {side} side, one {mi3}-iteration launch")
+        k3_err = max(k3_err, float(torch.nan_to_num(
+            (rk.delta - rp.delta).abs(), nan=0.0)[act3].max()))
+        calls3 = []
+        p3_kw = dict(phase1_iters=kw3["phase1_iters"],
+                     phase2_budget=kw3["phase2_budget"], max_iter=mi3,
+                     chunk=kw3["chunk"])
+        r2k = GN._two_phase(recorder(GN.refine_2dof_cuda, imgs3, g3, calls3,
+                                     maps4=maps43), B3, lanes3, act3, d03,
+                            **p3_kw)
+        r2p = GN._two_phase(recorder(GN.refine_2dof_plain, imgs3, g3, []),
+                            B3, lanes3, act3, d03, **p3_kw)
+        r2b = GN.refine_2dof_batch(*a3, **kw3)
+        torch.cuda.synchronize()
+        same_lanes(r2k, r2p, act3, f"K3 {side} side, two phases")
+        same_lanes(r2k, r2b, act3,
+                   f"K3 {side} side, two phases vs refine_2dof_batch")
+        check(len(calls3) == 2, f"K3: {len(calls3)} launches for two phases")
+        forms3 = {f"one_launch_{mi3}": (lanes3, d03, 0, mi3, act3)}
+        forms3["phase1"], forms3["phase2"] = calls3
+        rows = gn_forms(
+            lambda args, d0, it0, it_stop, fact: GN.refine_2dof_cuda(
+                *imgs3, *args, d0, fact, it0, it_stop, maps4=maps43, **g3),
+            forms3, k3_work, P3, H, W)
+        k3_plain[side] = cuda_ms(lambda: GN.refine_2dof_plain(
+            *imgs3, *lanes3, d03, act3, 0, mi3, **g3), 3)
+        n_nan = int((rk.delta.isnan().any(-1) & act3).sum())
+        for form, row in rows.items():
+            k3[f"{side}_{form}"] = row
+            print(f"K3 {side} {form}: {row['lanes']} lanes, {row['active']} "
+                  f"active, {row['iterations']} lane-iterations; "
+                  f"{row['ms']:.4f} ms; bound {row['bound_ms'] * 1e3:.1f} us "
+                  f"({row['bound_by']}), {row['pct_of_bound']:.1f}% of it; "
+                  f"FMA-free bound {row['bound_ms_no_fma'] * 1e3:.1f} us, "
+                  f"{row['pct_of_bound_no_fma']:.1f}% of it")
+        print(f"K3 {side} side (B={B3}, active {int(act3.sum())}, {n_nan} "
+              f"with a NaN step): bit-equal to its twin on every active "
+              f"lane, as one launch and as two phases; plain "
+              f"{k3_plain[side]:.3f} ms")
+    ms_maps43 = cuda_ms(lambda: GN.interleave_maps(*imgs3[1:]), 50)
+    step3 = sum(k3[f"{sd}_{f}"]["ms"] for sd in ("left", "right")
+                for f in ("phase1", "phase2"))
+    print(f"K3 refine_2dof: one temporal step's four launches {step3:.4f} ms "
+          f"+ 2 interleaves of {ms_maps43:.4f} ms [{card}]")
+    w3 = k3[f"left_one_launch_{mi3}"]
+    return dict(
+        name="refine_2dof", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/gn_2dof.cu",
+        replaces="edge_based_visual_odometry_tpu/ops/gauss_newton.py:387",
+        max_abs_err=k3_err, plain_ms=k3_plain["left"], library_ms=None,
+        maps_interleave_ms=ms_maps43, step_launches_ms=step3, **w3,
+        forms={f: {k: r[k] for k in (
+            "ms", "bound_ms", "bound_by", "pct_of_bound", "bound_ms_no_fma",
+            "pct_of_bound_no_fma", "lanes", "active", "iterations")}
+            for f, r in k3.items()})
+
+
 def phase_sequence(seq, images, card, work_dir):
     """Phase 7. Returns the kernel launches of the main run."""
     from edge_based_visual_odometry_tpu_torch import cli as CLI
@@ -308,7 +479,8 @@ def phase_sequence(seq, images, card, work_dir):
     for pf in per_frame:
         k = pf["k"]
         check(pf["launches"]["toed_gradient_field"] >= 1
-              and pf["launches"]["refine_along_epipolar"] >= 1,
+              and pf["launches"]["refine_along_epipolar"] >= 1
+              and pf["launches"]["refine_2dof"] == (4 if k else 0),
               f"sequence frame {k}: kernel launches {pf['launches']}")
         check(pf["mates"] >= 21000,
               f"sequence frame {k}: mates {pf['mates']} < 21000")
@@ -487,7 +659,7 @@ def phase_evaluation(seq, card, work_dir, dev):
                                            **gn_kw)
     rp, dp = GN.refine_along_epipolar_plain(*a, alpha0, act, 0,
                                             kw["max_iter"], **gn_kw)
-    same_lanes((*rk, dk), (*rp, dp), act, "evaluation frame, one launch")
+    same_lanes((*rk, dk), (*rp, dp), act, "K2 evaluation frame, one launch")
     same_lanes(GN.refine_along_epipolar_batch(*a, **kw),
                GN._two_phase(
                    lambda args, d0, it0, it_stop, active:
@@ -497,7 +669,7 @@ def phase_evaluation(seq, card, work_dir, dev):
                    alpha0, phase1_iters=kw["phase1_iters"],
                    phase2_budget=kw["phase2_budget"], max_iter=kw["max_iter"],
                    chunk=kw["chunk"]),
-               act, "evaluation frame, two phases")
+               act, "K2 evaluation frame, two phases")
     print(f"K2 on the evaluation path's stage-9 input ({int(act.sum())} "
           f"active lanes, {frac:.2f} of the right image non-integer): "
           f"bit-equal to its twin, as one launch and as two phases")
@@ -787,35 +959,29 @@ def main():
                                            **gn_kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(rk.delta[act]).all()), "K2 alpha not finite")
-    same_lanes((*rk, dk), (*rp, dp), act, f"one {max_iter}-iteration launch")
+    same_lanes((*rk, dk), (*rp, dp), act,
+               f"K2 one {max_iter}-iteration launch")
     err_k2 = float((rk.delta - rp.delta).abs()[act].max())
 
     # the pipeline's two phases, recording each launch's operands; the
     # kernel reads the maps interleaved once, as refine_along_epipolar_batch
     # makes them
     maps4 = GN.interleave_maps(*a[1:4])
-
-    def recorder(fn, calls, **extra):
-        def run(args, delta0, it0, it_stop, active):
-            calls.append((args, delta0, it0, it_stop, active))
-            return fn(*a[:4], *args, delta0, active, it0, it_stop, **gn_kw,
-                      **extra)
-        return run
-
     lanes = tuple(t.contiguous() for t in a[4:])
     phase_kw = dict(phase1_iters=kw["phase1_iters"],
                     phase2_budget=kw["phase2_budget"], max_iter=max_iter,
                     chunk=kw["chunk"])
     calls_k, calls_p = [], []
-    r2k = GN._two_phase(recorder(GN.refine_along_epipolar_cuda, calls_k,
-                                 maps4=maps4), B, lanes, act, alpha0,
+    r2k = GN._two_phase(recorder(GN.refine_along_epipolar_cuda, a[:4], gn_kw,
+                                 calls_k, maps4=maps4), B, lanes, act,
+                        alpha0, **phase_kw)
+    r2p = GN._two_phase(recorder(GN.refine_along_epipolar_plain, a[:4],
+                                 gn_kw, calls_p), B, lanes, act, alpha0,
                         **phase_kw)
-    r2p = GN._two_phase(recorder(GN.refine_along_epipolar_plain, calls_p), B,
-                        lanes, act, alpha0, **phase_kw)
     r2b = GN.refine_along_epipolar_batch(*a, **kw)
     torch.cuda.synchronize()
-    same_lanes(r2k, r2p, act, "two phases")
-    same_lanes(r2k, r2b, act, "two phases vs refine_along_epipolar_batch")
+    same_lanes(r2k, r2p, act, "K2 two phases")
+    same_lanes(r2k, r2b, act, "K2 two phases vs refine_along_epipolar_batch")
     check(len(calls_k) == 2, f"K2: {len(calls_k)} launches for two phases")
 
     # timing: each form on the interleaved maps; bound from the iterations
@@ -826,18 +992,11 @@ def main():
           f"{H}x{W}x4 float32): {ms_maps4:.4f} ms once per frame")
     forms = {f"one_launch_{max_iter}": ((*a[4:],), alpha0, 0, max_iter, act)}
     forms["phase1"], forms["phase2"] = calls_k
-    k2 = {}
-    for form, (args, d0, it0, it_stop, fact) in forms.items():
-        def launch():
-            return GN.refine_along_epipolar_cuda(*a[:4], *args, d0, fact, it0,
-                                                 it_stop, maps4=maps4, **gn_kw)
-        res, _ = launch()
-        run_it = (res.iters.long() - it0).clamp(min=0) * fact
-        work = k2_work(run_it.cpu().numpy(), fact.cpu().numpy(), P, H, W)
-        row = with_bound(cuda_ms(launch, 20), *work, fma_free=True)
-        row.update(lanes=int(fact.shape[0]), active=int(fact.sum()),
-                   iterations=int(run_it.sum()))
-        k2[form] = row
+    k2 = gn_forms(
+        lambda args, d0, it0, it_stop, fact: GN.refine_along_epipolar_cuda(
+            *a[:4], *args, d0, fact, it0, it_stop, maps4=maps4, **gn_kw),
+        forms, k2_work, P, H, W)
+    for form, row in k2.items():
         print(f"K2 {form}: {row['lanes']} lanes, {row['active']} active, "
               f"{row['iterations']} lane-iterations; {row['ms']:.4f} ms; "
               f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), "
@@ -889,12 +1048,29 @@ def main():
     # ---- 6. the production frame through VOPipeline ----
     pipe = PL.VOPipeline(seq.rig, cfg, device=dev,
                          keyframe_policy="every_frame")
+    # the prediction-mode temporal step (frame 2) keeps its arguments, and
+    # the operands it gives K3 (refine_2dof_batch, once per side)
+    predict, pred_args, k3_ops = pipe._temporal_step, [], []
+
+    def recording_predict(*step_args):
+        pred_args[:] = [step_args]
+        batch = GN.refine_2dof_batch
+
+        def rec(*a3, **kw3):
+            k3_ops.append((a3, kw3))
+            return batch(*a3, **kw3)
+        GN.refine_2dof_batch = rec
+        try:
+            return predict(*step_args)
+        finally:
+            GN.refine_2dof_batch = batch
+
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
     pipe._stereo_step = functools.partial(timer.timed, "stereo step",
                                           pipe._stereo_step)
     pipe._temporal_step = functools.partial(timer.timed, "temporal step",
-                                            pipe._temporal_step)
+                                            recording_predict)
     pipe._temporal_step_boot = functools.partial(
         timer.timed, "temporal step", pipe._temporal_step_boot)
     torch.cuda.synchronize()
@@ -918,6 +1094,9 @@ def main():
         rows = fr.stereo_metrics[:, 1].cpu().numpy().astype(int).tolist()
         check(dl["toed_gradient_field"] >= 1, f"frame {k}: K1 not launched")
         check(dl["refine_along_epipolar"] >= 1, f"frame {k}: K2 not launched")
+        # K3: two phases for each side of a temporal step
+        check(dl["refine_2dof"] == (4 if k else 0),
+              f"frame {k}: K3 launched {dl['refine_2dof']} times")
         m = fr.mates
         v = m.valid
         check(m.gamma.shape == (cfg.max_mates, 3), f"frame {k}: gamma shape")
@@ -952,6 +1131,21 @@ def main():
           f"port's {pr1}")
 
     print(timer.report())
+    pipe._temporal_step = functools.partial(timer.timed, "temporal step",
+                                            predict)
+    check(len(k3_ops) == 2 and len(pred_args) == 1,
+          f"frame 2: {len(k3_ops)} refine_2dof_batch calls recorded")
+    split = temporal_split(predict, pred_args[0])
+    split["rest of match_temporal"] = split["match_temporal"] - sum(
+        split[nm] for nm in ("refine_2dof_batch (2 sides)", "cluster_edges",
+                             "dense NCC + descriptor gates"))
+    print(f"temporal step of frame 2 (prediction mode), per stage, each "
+          f"synchronised, mean of 3, ms: "
+          + ", ".join(f"{nm} {ms:.2f}" for nm, ms in split.items())
+          + f" [{card}]")
+
+    # ---- 6b. K3 vs plain, bit for bit, on frame 2's operands ----
+    kernels.append(phase_k3(k3_ops, card, H, W))
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1007,7 +1201,8 @@ def main():
             "flops", "bytes", "card")}
         | {k: v for k, v in kd.items() if k in (
             "bound_ms_no_fma", "pct_of_bound_no_fma", "maps_interleave_ms",
-            "values_not_bit_equal", "forms", "launches_by_path")}
+            "values_not_bit_equal", "forms", "launches_by_path",
+            "step_launches_ms")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

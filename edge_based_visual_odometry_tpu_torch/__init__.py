@@ -5,11 +5,12 @@ module here keeps its counterpart's module path, function names and
 tensor contracts (shapes, capacities, masks, orderings), so that each
 stage can be held against the reference on the same numpy inputs.
 
-Plain tensor code is PyTorch. The two hot kernels of the frame are
+Plain tensor code is PyTorch. The three hot kernels of the frame are
 hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use:
 
   - `ops.toed.toed_gradient_field`             (TOED filter bank)
   - `ops.gauss_newton.refine_along_epipolar`   (1-DoF epipolar GN)
+  - `ops.gauss_newton.refine_2dof`             (2-DoF KF->CF GN)
 
 Each has a plain-PyTorch twin in the same module; a CPU tensor goes to
 the twin, a CUDA tensor to the kernel.

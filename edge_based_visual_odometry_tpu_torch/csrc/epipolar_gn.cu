@@ -35,6 +35,8 @@
 // from the 32 x 32 tile around the left edge. The kernel runs iterations
 // [it0, it_stop) from per-lane alpha0/active, so `_two_phase` in
 // ops/gauss_newton.py launches it twice with the reference's semantics.
+// The sampling and summing helpers it shares with the 2-DoF kernel
+// (gn_2dof.cu) are in gn_common.cuh.
 //
 // Arithmetic is written with round-to-nearest intrinsics (no FMA
 // contraction) in the order of the plain twin `refine_along_epipolar_plain`
@@ -44,84 +46,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gn_common.cuh"
+
 namespace {
 
+using namespace gn;
+
 constexpr int WARPS = 8;       // candidates per block
-constexpr int NS = 4;          // samples per lane: 2 * P * P <= 32 * NS
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = add(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// origin of the atlas tile picked for anchor c on an axis of length n
-__device__ __forceinline__ float tile_origin(float c, int tile, int stride,
-                                             int n) {
-  const int nb = (n + stride - 1) / stride;
-  float k = rintf(__fdiv_rn(sub(c, tile * 0.5f), (float)stride));
-  k = fminf(fmaxf(k, 0.0f), (float)(nb - 1));
-  return mul(k, (float)stride);
-}
-
-struct Tap {
-  int i00, i01, i10, i11;
-  float wc0, wc1, wr0, wr1;
-};
-
-// bilinear taps of (x, y) clamped to the tile at (ox, oy), as image
-// indices (edge-replicated into the image); weights as the reference's
-// hat-weight contraction
-__device__ __forceinline__ Tap make_tap(float x, float y, float ox, float oy,
-                                       float t1, int H, int W) {
-  const float rx = fminf(fmaxf(sub(x, ox), 0.0f), t1);
-  const float ry = fminf(fmaxf(sub(y, oy), 0.0f), t1);
-  const float x0 = floorf(rx), y0 = floorf(ry);
-  Tap t;
-  t.wc0 = sub(1.0f, fabsf(sub(rx, x0)));
-  t.wc1 = sub(1.0f, fabsf(sub(rx, add(x0, 1.0f))));
-  t.wr0 = sub(1.0f, fabsf(sub(ry, y0)));
-  t.wr1 = sub(1.0f, fabsf(sub(ry, add(y0, 1.0f))));
-  const int ix0 = min((int)add(ox, x0), W - 1);
-  const int ix1 = min((int)add(add(ox, x0), 1.0f), W - 1);
-  const int iy0 = min((int)add(oy, y0), H - 1);
-  const int iy1 = min((int)add(add(oy, y0), 1.0f), H - 1);
-  t.i00 = iy0 * W + ix0;
-  t.i01 = iy0 * W + ix1;
-  t.i10 = iy1 * W + ix0;
-  t.i11 = iy1 * W + ix1;
-  return t;
-}
-
-__device__ __forceinline__ float lerp4(const Tap& t, float v00, float v01,
-                                       float v10, float v11) {
-  return add(mul(t.wr0, add(mul(t.wc0, v00), mul(t.wc1, v01))),
-             mul(t.wr1, add(mul(t.wc0, v10), mul(t.wc1, v11))));
-}
-
-__device__ __forceinline__ float read_global(const float* __restrict__ m,
-                                             const Tap& t) {
-  return lerp4(t, __ldg(m + t.i00), __ldg(m + t.i01), __ldg(m + t.i10),
-               __ldg(m + t.i11));
-}
-
-// right, gx, gy at one tap of the interleaved {right, gx, gy, -} pixels
-__device__ __forceinline__ void read3(const float4* __restrict__ m,
-                                      const Tap& t, float* rv, float* gx,
-                                      float* gy) {
-  const float4 a = __ldg(m + t.i00);
-  const float4 b = __ldg(m + t.i01);
-  const float4 c = __ldg(m + t.i10);
-  const float4 d = __ldg(m + t.i11);
-  *rv = lerp4(t, a.x, b.x, c.x, d.x);
-  *gx = lerp4(t, a.y, b.y, c.y, d.y);
-  *gy = lerp4(t, a.z, b.z, c.z, d.z);
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 epipolar_gn_kernel(const float* __restrict__ left,
@@ -158,7 +89,6 @@ epipolar_gn_kernel(const float* __restrict__ left,
 
   const int pp = P * P;
   const int n_samples = 2 * pp;
-  const int half = P / 2;
   const float side = P / 2.0f + 1.0f;
   const float inv_pp = 1.0f / pp, inv_n = 1.0f / n_samples;
   const float inv_huber = 1.0f / huber;
@@ -171,45 +101,10 @@ epipolar_gn_kernel(const float* __restrict__ left,
   const float ox = tile_origin(rx, tile, stride, W);
   const float oy = tile_origin(ry, tile, stride, H);
   const float t1 = tile - 1.0f;
-  // per-lane samples: rotated offsets (ct*i, st*j, st*i, ct*j), patch
-  // half (+1 plus / -1 minus)
-  float cti[NS], stj[NS], sti[NS], ctj[NS], sgn[NS], lc[NS];
-  bool has[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    const int s_ = lane + 32 * k;
-    has[k] = s_ < n_samples;
-    // a lane past the samples computes sample 0 again (and adds nothing),
-    // so its reads stay inside the patch
-    const int q = !has[k] ? 0 : s_ < pp ? s_ : s_ - pp;
-    const float oi = (float)(q / P - half), oj = (float)(q % P - half);
-    cti[k] = mul(ct, oi);
-    stj[k] = mul(st, oj);
-    sti[k] = mul(st, oi);
-    ctj[k] = mul(ct, oj);
-    sgn[k] = s_ < pp ? 1.0f : -1.0f;
-  }
-
-  // centred left patches (sampled once)
-  {
-    const float lox = tile_origin(lx, 32, 8, W);
-    const float loy = tile_origin(ly, 32, 8, H);
-    float sp = 0.0f, sm = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      const float cx = sgn[k] > 0 ? add(lx, nsx) : sub(lx, nsx);
-      const float cy = sgn[k] > 0 ? add(ly, nsy) : sub(ly, nsy);
-      const float px = sub(add(cx, cti[k]), stj[k]);
-      const float py = add(add(cy, sti[k]), ctj[k]);
-      lc[k] = read_global(left, make_tap(px, py, lox, loy, 31.0f, H, W));
-      sp = has[k] && sgn[k] > 0 ? add(sp, lc[k]) : sp;
-      sm = has[k] && sgn[k] < 0 ? add(sm, lc[k]) : sm;
-    }
-    const float mp = mul(warp_sum(sp), inv_pp);
-    const float mm = mul(warp_sum(sm), inv_pp);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) lc[k] = sub(lc[k], sgn[k] > 0 ? mp : mm);
-  }
+  const Slots sl = make_slots(lane, P);
+  const Rotated rot = rotate(sl, ct, st);
+  float lc[NS];     // centred left patches (sampled once)
+  centred_patches(left, H, W, lx, ly, nsx, nsy, sl, rot, inv_pp, lc);
 
   float score = 1e6f, conf = 0.0f;
   bool valid = false, done = false;
@@ -217,30 +112,25 @@ epipolar_gn_kernel(const float* __restrict__ left,
   for (int it = it0; it < it_stop && !done; ++it) {
     const float bx = add(rx, mul(alpha, dx)), by = add(ry, mul(alpha, dy));
     float rv[NS], gx[NS], gy[NS];
-    float sp = 0.0f, sm = 0.0f;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      const float cx = sgn[k] > 0 ? add(bx, nsx) : sub(bx, nsx);
-      const float cy = sgn[k] > 0 ? add(by, nsy) : sub(by, nsy);
-      const float px = sub(add(cx, cti[k]), stj[k]);
-      const float py = add(add(cy, sti[k]), ctj[k]);
+      float px, py;
+      slot_xy(sl, rot, k, bx, by, nsx, nsy, &px, &py);
       read3(maps4, make_tap(px, py, ox, oy, t1, H, W), &rv[k], &gx[k],
             &gy[k]);
-      sp = has[k] && sgn[k] > 0 ? add(sp, rv[k]) : sp;
-      sm = has[k] && sgn[k] < 0 ? add(sm, rv[k]) : sm;
     }
-    const float mp = mul(warp_sum(sp), inv_pp);
-    const float mm = mul(warp_sum(sm), inv_pp);
+    float mp, mm;
+    half_means(sl, rv, inv_pp, &mp, &mm);
     float Hh = 0.0f, bb = 0.0f, cost = 0.0f;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      const float r = sub(lc[k], sub(rv[k], sgn[k] > 0 ? mp : mm));
+      const float r = sub(lc[k], sub(rv[k], sl.sgn[k] > 0 ? mp : mm));
       const float g = add(mul(-gx[k], dx), mul(gy[k], dy));
       const float ar = fabsf(r);
       const float w = ar <= huber ? 1.0f : mul(__frcp_rn(ar), huber);
-      Hh = has[k] ? add(Hh, mul(mul(w, g), g)) : Hh;
-      bb = has[k] ? add(bb, mul(mul(w, g), r)) : bb;
-      cost = has[k] ? add(cost, mul(mul(w, r), r)) : cost;
+      Hh = sl.has[k] ? add(Hh, mul(mul(w, g), g)) : Hh;
+      bb = sl.has[k] ? add(bb, mul(mul(w, g), r)) : bb;
+      cost = sl.has[k] ? add(cost, mul(mul(w, r), r)) : cost;
     }
     Hh = warp_sum(Hh);
     bb = warp_sum(bb);

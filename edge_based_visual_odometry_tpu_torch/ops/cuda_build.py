@@ -1,11 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under `csrc/` have a plain C interface. At first use they are
-compiled by nvcc for Hopper (`sm_90a`), one process per source in
-parallel, and linked into one shared library under
-`build/torch_kernels/` at the repository root and loaded with ctypes. The
-library name carries a hash of the sources and the nvcc command, so an
-edited source builds anew; deleting the directory forces a rebuild.
+The sources under `csrc/` (`*.cu`, and the `*.cuh` headers they include)
+have a plain C interface. At first use they are compiled by nvcc for
+Hopper (`sm_90a`), one process per `*.cu` in parallel, and linked into
+one shared library under `build/torch_kernels/` at the repository root
+and loaded with ctypes. The library name carries a hash of the sources,
+headers included, and the nvcc command, so an edited source or header
+builds anew; deleting the directory forces a rebuild.
 
 Every kernel wrapper adds one to its entry of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -31,16 +32,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 
 # kernel name -> launches since the last reset_launch_counts()
-LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0}
+LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
+            "refine_2dof": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the GN kernels' entries: images, H, W, lanes, B .. stride, tol, huber,
+# outputs, stream
+_GN_ARGS = [_P] * 2 + [_I] * 2 + [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P] * 7
 # C entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
     "toed_gradient_field_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "refine_along_epipolar_launch": ([_P] * 2 + [_I] * 2 + [_P] * 8
-                                     + [_I] * 7 + [_F] * 2 + [_P] * 7),
+    "refine_along_epipolar_launch": _GN_ARGS,
+    "refine_2dof_launch": _GN_ARGS,
 }
 
 _lock = threading.Lock()
@@ -70,7 +75,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libvo_kernels_{h.hexdigest()[:16]}.so"

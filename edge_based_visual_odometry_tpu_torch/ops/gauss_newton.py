@@ -9,8 +9,9 @@ gauss_newton.py`. Both work on mean-centred two-side rotated 7x7 patches
     `csrc/epipolar_gn.cu`; on CPU tensors its plain twin
     `refine_along_epipolar_plain`. `refine_along_epipolar_batch` drives it
     through the reference's two-phase convergence compaction.
-  - `refine_2dof_batch` - the 2-DoF KF->CF translation refiner (plain
-    PyTorch).
+  - `refine_2dof_batch` - the 2-DoF KF->CF translation refiner, driven
+    the same way: the hand-written kernel `csrc/gn_2dof.cu` on CUDA
+    tensors, its plain twin `refine_2dof_plain` on CPU tensors.
 
 Results the reference's TPU layout introduced, kept here because they
 change results: every right/CF sample is clamped to the atlas tile the
@@ -153,6 +154,54 @@ def interleave_maps(right_img, right_gx, right_gy):
     return torch.stack([right_img, right_gx, right_gy, right_img], -1)
 
 
+_PAIRS = ("epi_dir", "d0")     # the (B, 2) lane operands; the others are (B,)
+
+
+def _launch_gn(entry: str, img, maps, maps4, lanes, active, it0: int,
+               it_stop: int, patch_size: int, max_iter: int, tol: float,
+               huber_delta: float, tile: int):
+    """Validate the operands of a GN kernel and launch it once.
+
+    `img` is the (name, image) whose patches are sampled once per lane,
+    `maps` the (name, map) image, gx, gy the iterations sample (interleaved
+    into `maps4` here when that is None), `lanes` the (name, tensor) lane
+    operands in the C entry's order, the last the starting step, whose
+    shape the returned delta has. Returns (RefineResult, done)."""
+    dev = lanes[0][1].device
+    if not lanes[0][1].is_cuda:
+        raise ValueError(f"{entry}: needs CUDA tensors, got them on {dev}")
+    H, W = img[1].shape
+    B = lanes[0][1].shape[0]
+    if 2 * patch_size * patch_size > 128 or patch_size % 2 == 0:
+        raise ValueError(f"patch_size {patch_size}: the kernel takes odd "
+                         "sizes with 2*P*P <= 128")
+    f32 = torch.float32
+    for name, t in (img, *maps):
+        CB.require(t, name, f32, (H, W), dev)
+    for name, t in lanes:
+        CB.require(t, name, f32, (B, 2) if name in _PAIRS else (B,), dev)
+    CB.require(active, "active", torch.bool, (B,), dev)
+    delta = torch.empty_like(lanes[-1][1])
+    score, conf = (torch.empty((B,), dtype=f32, device=dev) for _ in range(2))
+    valid, done = (torch.empty((B,), dtype=torch.bool, device=dev)
+                   for _ in range(2))
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    if maps4 is None:
+        maps4 = interleave_maps(*(t for _, t in maps))
+    CB.require(maps4, "maps4", f32, (H, W, 4), dev)
+    with torch.cuda.device(dev):
+        err = getattr(CB.lib(), f"{entry}_launch")(
+            img[1].data_ptr(), maps4.data_ptr(), H, W,
+            *(t.data_ptr() for _, t in lanes), active.data_ptr(), B, it0,
+            it_stop, max_iter, patch_size, tile, TS.atlas_stride(tile), tol,
+            huber_delta, delta.data_ptr(),
+            score.data_ptr(), conf.data_ptr(), valid.data_ptr(),
+            iters.data_ptr(), done.data_ptr(), CB.stream_ptr(dev))
+    CB.check(err, entry)
+    CB.LAUNCHES[entry] += 1
+    return RefineResult(delta, score, conf, valid, iters), done
+
+
 def refine_along_epipolar_cuda(left_img, right_img, right_gx, right_gy,
                                lx, ly, ltheta, rx, ry, epi_dir, alpha0,
                                active, it0: int, it_stop: int,
@@ -163,46 +212,13 @@ def refine_along_epipolar_cuda(left_img, right_img, right_gx, right_gy,
     `refine_along_epipolar_plain`, for CUDA tensors. `maps4`, if given, is
     `interleave_maps(right_img, right_gx, right_gy)`, made once for several
     launches on the same maps; otherwise the launch makes it."""
-    dev = lx.device
-    if not lx.is_cuda:
-        raise ValueError(f"refine_along_epipolar_cuda: needs CUDA tensors, "
-                         f"got them on {dev}")
-    H, W = left_img.shape
-    B = lx.shape[0]
-    if 2 * patch_size * patch_size > 128 or patch_size % 2 == 0:
-        raise ValueError(f"patch_size {patch_size}: the kernel takes odd "
-                         "sizes with 2*P*P <= 128")
-    f32 = torch.float32
-    for name, t in (("left_img", left_img), ("right_img", right_img),
-                    ("right_gx", right_gx), ("right_gy", right_gy)):
-        CB.require(t, name, f32, (H, W), dev)
-    for name, t in (("lx", lx), ("ly", ly), ("ltheta", ltheta), ("rx", rx),
-                    ("ry", ry), ("alpha0", alpha0)):
-        CB.require(t, name, f32, (B,), dev)
-    CB.require(epi_dir, "epi_dir", f32, (B, 2), dev)
-    CB.require(active, "active", torch.bool, (B,), dev)
-    out = [torch.empty((B,), dtype=f32, device=dev) for _ in range(3)]
-    valid = torch.empty((B,), dtype=torch.bool, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    done = torch.empty((B,), dtype=torch.bool, device=dev)
-    if maps4 is None:
-        maps4 = interleave_maps(right_img, right_gx, right_gy)
-    CB.require(maps4, "maps4", f32, (H, W, 4), dev)
-    lib = CB.lib()
-    with torch.cuda.device(dev):
-        err = lib.refine_along_epipolar_launch(
-            left_img.data_ptr(), maps4.data_ptr(), H, W,
-            lx.data_ptr(), ly.data_ptr(), ltheta.data_ptr(), rx.data_ptr(),
-            ry.data_ptr(), epi_dir.data_ptr(), alpha0.data_ptr(),
-            active.data_ptr(),
-            B, it0, it_stop, max_iter, patch_size, tile,
-            TS.atlas_stride(tile), tol, huber_delta,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            valid.data_ptr(), iters.data_ptr(), done.data_ptr(),
-            CB.stream_ptr(dev))
-    CB.check(err, "refine_along_epipolar")
-    CB.LAUNCHES["refine_along_epipolar"] += 1
-    return RefineResult(out[0], out[1], out[2], valid, iters), done
+    return _launch_gn(
+        "refine_along_epipolar", ("left_img", left_img),
+        (("right_img", right_img), ("right_gx", right_gx),
+         ("right_gy", right_gy)), maps4,
+        (("lx", lx), ("ly", ly), ("ltheta", ltheta), ("rx", rx), ("ry", ry),
+         ("epi_dir", epi_dir), ("alpha0", alpha0)), active, it0, it_stop,
+        patch_size, max_iter, tol, huber_delta, tile)
 
 
 def refine_along_epipolar(left_img, right_img, right_gx, right_gy, lx, ly,
@@ -283,9 +299,12 @@ def refine_2dof_plain(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
                       patch_size: int = 7, max_iter: int = 20,
                       tol: float = 1e-3, huber_delta: float = 3.0,
                       tile: int = 32):
-    """2-DoF photometric GN iterations [it0, it_stop) from displacement d0
-    (B, 2); the CF patch centre is kf - d, rotated by the CF orientation.
-    Returns (RefineResult, done)."""
+    """Plain-PyTorch twin of the CUDA kernel K3: 2-DoF photometric GN
+    iterations [it0, it_stop) from displacement d0 (B, 2) on every active
+    lane; the CF patch centre is kf - d, rotated by the CF orientation.
+    Returns (RefineResult, done); inactive lanes start done. Sums follow
+    the kernel's lane order and divisions by constants are reciprocal
+    multiplies, as in the kernel, so both do the same arithmetic."""
     side = patch_size / 2.0 + 1.0
     pp = patch_size * patch_size
     n_samples = 2 * pp
@@ -315,27 +334,60 @@ def refine_2dof_plain(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
         r = lc - _centered_halves(rv, pp)
         absr = torch.abs(r)
         w = torch.where(absr < huber_delta, torch.ones_like(r),
-                        huber_delta / absr)
-        H00 = (w * gx * gx).sum(-1) + reg
-        H01 = (w * gx * gy).sum(-1)
-        H11 = (w * gy * gy).sum(-1) + reg
-        b0 = (w * gx * r).sum(-1)
-        b1 = (w * gy * r).sum(-1)
-        cost = (w * r * r).sum(-1)
-        inv = 1.0 / (H00 * H11 - H01 * H01)
+                        torch.reciprocal(absr) * huber_delta)
+        wgx, wgy = w * gx, w * gy
+        H00 = _lane_sum(wgx * gx) + reg
+        H01 = _lane_sum(wgx * gy)
+        H11 = _lane_sum(wgy * gy) + reg
+        b0 = _lane_sum(wgx * r)
+        b1 = _lane_sum(wgy * r)
+        cost = _lane_sum(w * r * r)
+        inv = torch.reciprocal(H00 * H11 - H01 * H01)
         delta = torch.stack([-(H11 * b0 - H01 * b1) * inv,
                              -(-H01 * b0 + H00 * b1) * inv], -1)
-        rms = torch.sqrt(cost / n_samples)
-        converged = (torch.linalg.norm(delta, dim=-1) < tol) | (it == max_iter - 1)
+        rms = torch.sqrt(cost * (1.0 / n_samples))
+        step = torch.sqrt(delta[:, 0] * delta[:, 0]
+                          + delta[:, 1] * delta[:, 1])
+        converged = (step < tol) | (it == max_iter - 1)
         is_outlier = (rms > huber_delta * 2.0) | (it < 1)
         finish = converged & ~done
         score = torch.where(finish, rms, score)
-        conf = torch.where(finish, torch.exp(-rms / huber_delta), conf)
+        conf = torch.where(finish, torch.exp(-rms * (1.0 / huber_delta)),
+                           conf)
         valid = torch.where(finish, ~is_outlier, valid)
         d = torch.where(done[:, None], d, d + delta)
         iters = torch.where(done, iters, torch.full_like(iters, it + 1))
         done = done | converged
     return RefineResult(d, score, conf, valid, iters), done
+
+
+def refine_2dof_cuda(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy,
+                     ctheta, d0, active, it0: int, it_stop: int,
+                     patch_size: int = 7, max_iter: int = 20,
+                     tol: float = 1e-3, huber_delta: float = 3.0,
+                     tile: int = 32, maps4=None):
+    """The hand-written kernel K3 (csrc/gn_2dof.cu): same contract as
+    `refine_2dof_plain`, for CUDA tensors; `maps4` as for
+    `refine_along_epipolar_cuda`, of the CF maps."""
+    return _launch_gn(
+        "refine_2dof", ("kf_img", kf_img),
+        (("cf_img", cf_img), ("cf_gx", cf_gx), ("cf_gy", cf_gy)), maps4,
+        (("kx", kx), ("ky", ky), ("ktheta", ktheta), ("cx", cx), ("cy", cy),
+         ("ctheta", ctheta), ("d0", d0)), active, it0, it_stop, patch_size,
+        max_iter, tol, huber_delta, tile)
+
+
+def refine_2dof(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta,
+                d0, active, it0: int, it_stop: int, maps4=None, **kw):
+    """2-DoF GN over lanes (see `refine_2dof_plain`): the CUDA kernel for
+    CUDA tensors (`maps4` as there), the plain twin for CPU tensors."""
+    args = (kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta, d0,
+            active, it0, it_stop)
+    if kx.is_cuda:
+        return refine_2dof_cuda(*args, maps4=maps4, **kw)
+    if kx.device.type != "cpu":
+        raise ValueError(f"refine_2dof: unsupported device {kx.device}")
+    return refine_2dof_plain(*args, **kw)
 
 
 def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
@@ -349,14 +401,16 @@ def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
     B = kx.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=kx.device)
+    # the kernel's layout of the CF maps, made once for both phases
+    maps4 = interleave_maps(cf_img, cf_gx, cf_gy) if kx.is_cuda else None
 
     def run(args, delta0, it0, it_stop, act):
-        return refine_2dof_plain(
+        return refine_2dof(
             kf_img, cf_img, cf_gx, cf_gy, *args, delta0, act, it0, it_stop,
-            patch_size=patch_size, max_iter=max_iter, tol=tol,
+            maps4=maps4, patch_size=patch_size, max_iter=max_iter, tol=tol,
             huber_delta=huber_delta, tile=tile)
 
-    args = (kx, ky, ktheta, cx, cy, ctheta)
+    args = tuple(a.contiguous() for a in (kx, ky, ktheta, cx, cy, ctheta))
     d0 = torch.stack([kx - cx, ky - cy], -1)
     if not phase1_iters or phase1_iters >= max_iter:
         return run(args, d0, 0, max_iter, active)[0]

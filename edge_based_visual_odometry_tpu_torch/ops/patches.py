@@ -60,6 +60,13 @@ def bilinear_sample_clamp(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
             + (1 - a) * b * v01 + a * b * v11)
 
 
+def _index(v, n: int):
+    """Integer index of a float position clamped to n - 1; a NaN position
+    (a GN lane whose step went NaN) reads index 0 with its NaN weights, as
+    the card's float-to-int conversion makes it, not an undefined index."""
+    return torch.nan_to_num(torch.clamp(v, max=n - 1), nan=0.0).to(torch.int64)
+
+
 def sample_tile_clamped(maps: torch.Tensor, ox, oy, xs, ys, tile: int):
     """Bilinear samples of (H, W) or (C, H, W) maps at absolute coords
     (xs, ys), each clamped to the T x T tile at origin (ox, oy) and read
@@ -80,10 +87,10 @@ def sample_tile_clamped(maps: torch.Tensor, ox, oy, xs, ys, tile: int):
     wc1 = 1.0 - torch.abs(rx - (x0 + 1.0))
     wr0 = 1.0 - torch.abs(ry - y0)
     wr1 = 1.0 - torch.abs(ry - (y0 + 1.0))
-    ix0 = torch.clamp(ox + x0, max=W - 1).to(torch.int64)
-    ix1 = torch.clamp(ox + x0 + 1.0, max=W - 1).to(torch.int64)
-    iy0 = torch.clamp(oy + y0, max=H - 1).to(torch.int64)
-    iy1 = torch.clamp(oy + y0 + 1.0, max=H - 1).to(torch.int64)
+    ix0 = _index(ox + x0, W)
+    ix1 = _index(ox + x0 + 1.0, W)
+    iy0 = _index(oy + y0, H)
+    iy1 = _index(oy + y0 + 1.0, H)
     flat = maps.reshape(C, H * W)
 
     def g(iy, ix):

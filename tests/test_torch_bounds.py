@@ -1,6 +1,6 @@
 """The bound arithmetic chip_smoke.py reports beside each kernel's time:
 work counted from the shapes (K1) and from the iterations a launch ran
-(K2), and the least time the card needs for it. chip_smoke.py imports
+(K2, K3), and the least time the card needs for it. chip_smoke.py imports
 without CUDA; only its main() needs the card."""
 
 import numpy as np
@@ -55,6 +55,32 @@ def test_k2_work_at_production_scale_is_flop_bound():
     nf = C.with_bound(1.0, flops, nbytes, fma_free=True)
     assert nf["bound_ms_no_fma"] == pytest.approx(2 * b["bound_ms"])
     assert nf["pct_of_bound_no_fma"] == pytest.approx(2 * nf["pct_of_bound"])
+
+
+def test_k3_work_from_hand_made_iters():
+    """K3, five lanes, two inactive; 0 + 3 + 20 iterations run in the
+    launch. P = 7: 98 samples, 47 flops each once per active lane (the KF
+    sample and the CF offsets), 98 x 75 + 28 flops per iteration. Bytes:
+    the four 376 x 1241 maps once, 33 bytes in and 22 out per lane."""
+    iters_run = np.array([0, 3, 0, 20, 0])
+    active = np.array([False, True, True, True, False])
+    flops, nbytes = C.k3_work(iters_run, active, 7, 376, 1241)
+    assert flops == 3 * 98 * 47 + 23 * (98 * 75 + 28) == 183_512
+    assert nbytes == 4 * 376 * 1241 * 4 + 5 * (33 + 22) == 7_466_131
+    assert C.bound(flops, nbytes)["bound_by"] == "bytes"
+
+
+def test_k3_work_at_production_scale_is_flop_bound():
+    """One side's 20-iteration launch over 131,072 lanes, 100,000 active,
+    8 iterations each: ~6.4 GFLOP against ~14.7 MB."""
+    B, n_act = 131_072, 100_000
+    iters_run = np.where(np.arange(B) < n_act, 8, 0)
+    flops, nbytes = C.k3_work(iters_run, np.arange(B) < n_act, 7, 376, 1241)
+    assert flops == n_act * 98 * 47 + 800_000 * (98 * 75 + 28) == 6_363_000_000
+    assert nbytes == 7_465_856 + B * 55 == 14_674_816
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] * 1e3 == pytest.approx(94.970, abs=1e-2)
 
 
 def test_bound_takes_the_larger_time():

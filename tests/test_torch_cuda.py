@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels against their plain-PyTorch twins, on the
-card, and the paths through them (the pipeline, BA, the CLI, the NCCL pair
-step and its production memory). Every test here needs a CUDA device
+"""The hand-written CUDA kernels (K1, K2, K3) against their plain-PyTorch
+twins, on the card, and the paths through them (the pipeline, BA, the
+CLI, the NCCL pair step and its production memory). Every test here needs
+a CUDA device
 (marker `gpu`) and skips without one. The file imports no JAX, so it also
 runs where JAX is not installed:
 
@@ -173,6 +174,122 @@ def test_gn_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
                 torch.testing.assert_close(a[act], b[act], rtol=0, atol=0)
 
 
+def _2dof_lanes(rng, B, H, W):
+    """K3 lanes at every border (the candidates of `_border_lanes`), each
+    KF edge within 3 px of its candidate, CF orientations at random, and
+    the starting step kf - cf moved by up to 1 px."""
+    u = rng.uniform
+    _, _, kt, cx, cy, _ = (a.numpy() for a in _border_lanes(rng, B, H, W))
+    kx = np.clip(cx + u(-3, 3, B), 0, W - 1)
+    ky = np.clip(cy + u(-3, 3, B), 0, H - 1)
+    ct = u(-np.pi, np.pi, B)
+    d0 = np.stack([kx - cx, ky - cy], -1) + u(-1, 1, (B, 2))
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return [f32(a) for a in (kx, ky, kt, cx, cy, ct)], f32(d0)
+
+
+def _assert_same(k, p, act):
+    """Kernel and twin (RefineResult, done) bit-equal on the `act` lanes;
+    NaN where the other is NaN (a lane whose 2x2 system went singular)."""
+    for a, b in zip((*k[0], k[1]), (*p[0], p[1])):
+        torch.testing.assert_close(a[act], b[act], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
+    """K3 on KF = left, CF = right: TOED edges of the left image, their
+    candidates at the GT disparity plus up to 1.5 px of noise, CF
+    orientation the KF's plus up to 0.1 rad; iterations [0, 2), [2, 20)
+    and [0, 20) from the same d0, and the two phases of
+    `refine_2dof_batch` against `_two_phase` over the twin."""
+    left, right, disp = frame
+    lf = torch.from_numpy(left.astype(np.float32))
+    rf = torch.from_numpy(right.astype(np.float32))
+    gx, gy = IMG.sobel_gradients(rf)
+    e = T.detect_edges(lf, max_edges=1024)
+    rng = np.random.default_rng(5)
+    B = 300
+    sel = torch.from_numpy(rng.choice(int(e.count), B, replace=False))
+    kx, ky, kt = e.x[sel], e.y[sel], e.theta[sel]
+    d = torch.from_numpy(disp)[ky.round().long(), kx.round().long()]
+    def noise(a):
+        return torch.from_numpy(rng.uniform(-a, a, B).astype(np.float32))
+    cx, cy, ct = kx - d + noise(1.5), ky + noise(1.5), kt + noise(0.1)
+    imgs = [a.to(dev).contiguous() for a in (lf, rf, gx, gy)]
+    lanes = [a.to(dev).contiguous() for a in (kx, ky, kt, cx, cy, ct)]
+    act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
+    d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
+    for tile in (32, 48):
+        for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
+            k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, it0, it_stop,
+                                    tile=tile)
+            p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
+                                     tile=tile)
+            _assert_same(k, p, act)
+    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32)
+    CB.reset_launch_counts()
+    two = GN.refine_2dof_batch(*imgs, *lanes, active=act, chunk=8,
+                               phase1_iters=2, phase2_budget=64, **kw)
+    assert CB.LAUNCHES["refine_2dof"] == 2
+    ref = GN._two_phase(
+        lambda args, d0_, it0, it_stop, a: GN.refine_2dof_plain(
+            *imgs, *args, d0_, a, it0, it_stop, **kw),
+        B, tuple(lanes), act, d0, phase1_iters=2, phase2_budget=64,
+        max_iter=20, chunk=8)
+    for a, b in zip(two, ref):
+        torch.testing.assert_close(a[act], b[act], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("patch_size", [7, 5])
+@pytest.mark.parametrize("tile", [32, 48])
+def test_2dof_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
+    """K3 against its twin, bit for bit, at 301 lanes on candidates clamped
+    at every border, with the interleaved maps made by the launch and
+    passed in."""
+    left, right, _ = frame
+    lf = torch.from_numpy(left.astype(np.float32))
+    rf = torch.from_numpy(right.astype(np.float32))
+    gx, gy = IMG.sobel_gradients(rf)
+    H, W = lf.shape
+    rng = np.random.default_rng(100 + tile + patch_size)
+    B = 301
+    lanes, d0 = _2dof_lanes(rng, B, H, W)
+    imgs = [a.to(dev).contiguous() for a in (lf, rf, gx, gy)]
+    lanes = [a.to(dev) for a in lanes]
+    d0 = d0.to(dev)
+    act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
+    maps4 = GN.interleave_maps(*imgs[1:])
+    for m4 in (None, maps4):
+        for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
+            k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, it0, it_stop,
+                                    patch_size=patch_size, tile=tile,
+                                    maps4=m4)
+            p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
+                                     patch_size=patch_size, tile=tile)
+            torch.cuda.synchronize()
+            _assert_same(k, p, act)
+
+
+def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
+    """Flat CF maps with equal large gradients make every lane's 2x2
+    system singular: kernel and twin both carry the NaN step to max_iter
+    (the tile clamp keeps a NaN, as torch.clamp does)."""
+    kf = torch.from_numpy(frame[0].astype(np.float32))
+    H, W = kf.shape
+    rng = np.random.default_rng(9)
+    lanes, d0 = _2dof_lanes(rng, 64, H, W)
+    imgs = [a.to(dev).contiguous() for a in (
+        kf, torch.full_like(kf, 100.0), torch.full_like(kf, 1000.0),
+        torch.full_like(kf, 1000.0))]
+    lanes, d0 = [a.to(dev) for a in lanes], d0.to(dev)
+    act = torch.ones(64, dtype=torch.bool, device=dev)
+    k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, 0, 20)
+    p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, 0, 20)
+    assert bool(k[0].delta.isnan().all()) and bool((k[0].iters == 20).all())
+    _assert_same(k, p, act)
+
+
 def test_wrappers_validate_operands(dev):
     x = torch.zeros(2, 40, 50, device=dev)
     with pytest.raises(ValueError):
@@ -193,6 +310,20 @@ def test_wrappers_validate_operands(dev):
         GN.refine_along_epipolar_cuda(*imgs, *lanes, epi, lanes[0], act, 0,
                                       20, maps4=torch.zeros(40, 50, 3,
                                                             device=dev))
+    # K3: six lanes and a (B, 2) d0
+    lanes6 = lanes + [lanes[0]]
+    with pytest.raises(ValueError):     # d0 must be (B, 2)
+        GN.refine_2dof_cuda(*imgs, *lanes6, lanes[0], act, 0, 20)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act.float(), 0, 20)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_cuda(*imgs[:1], imgs[1][:, :40], *imgs[2:], *lanes6,
+                            epi, act, 0, 20)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act, 0, 20, patch_size=8)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act, 0, 20,
+                            maps4=torch.zeros(40, 50, 3, device=dev))
 
 
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
@@ -208,6 +339,8 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert all(v == 0 for v in n_cpu.values())
     assert n_gpu["toed_gradient_field"] == 3
     assert n_gpu["refine_along_epipolar"] >= 3
+    # K3: two phases for each side of the two temporal steps
+    assert n_gpu["refine_2dof"] == 8
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()

@@ -7,7 +7,7 @@ is exact to ~0.003 gray):
     32, 2 phase-1 iterations, weight split) with a phase-2 budget small
     enough that the over-budget path runs;
   - the same vs the Pallas kernel in interpret mode (tile 48, one phase);
-  - 2-DoF GN vs refine_2dof_batch.
+  - 2-DoF GN (plain twin of kernel K3) vs refine_2dof_batch.
 
 Tolerances (cf. tests/test_toed_pallas.py): delta atol 2e-3, score atol
 1e-2, `valid` agreement >= 0.98 - f32 sums in another order and the
@@ -104,15 +104,27 @@ def test_epipolar_matches_pallas_interpret(problem):
     _assert_close(out, ref, p["act"])
 
 
-def test_two_phase_within_budget_equals_single_phase(problem):
+def _2dof_args(p):
+    """KF = left image, CF = right image: each candidate refines onto its
+    KF edge's match (the lanes of `problem`, CF orientation = KF's)."""
+    left, right, gx, gy = p["imgs"]
+    return [torch.from_numpy(np.array(a)) for a in
+            (left, right, gx, gy, p["lx"], p["ly"], p["lt"], p["rx"], p["ry"],
+             p["lt"])]
+
+
+@pytest.mark.parametrize("refiner", ["epipolar", "2dof"])
+def test_two_phase_within_budget_equals_single_phase(problem, refiner):
     p = problem
     act = torch.from_numpy(p["act"])
-    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=1.0, tile=32,
+    if refiner == "epipolar":
+        batch, args, huber = GN.refine_along_epipolar_batch, _port_args(p), 1.0
+    else:
+        batch, args, huber = GN.refine_2dof_batch, _2dof_args(p), 3.0
+    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=huber, tile=32,
               active=act)
-    one = GN.refine_along_epipolar_batch(*_port_args(p), **kw)
-    two = GN.refine_along_epipolar_batch(*_port_args(p), chunk=8,
-                                         phase1_iters=2, phase2_budget=4096,
-                                         **kw)
+    one = batch(*args, **kw)
+    two = batch(*args, chunk=8, phase1_iters=2, phase2_budget=4096, **kw)
     for a, b in zip(one[:4], two[:4]):
         torch.testing.assert_close(a[act], b[act], rtol=0, atol=0)
 
@@ -144,19 +156,46 @@ def test_2dof_matches_jax(problem, budget):
     _assert_close(out, ref, settled)
 
 
+def test_2dof_singular_lanes_go_nan_without_an_index_error(problem):
+    """CF maps flat, with equal and large constant gradients: every lane's
+    2x2 system rounds to det = 0 (reg is lost against ~1e6) and its step
+    to NaN. The twin carries the NaN through the tile-clamped sampling to
+    max_iter (a NaN position reads index 0, as on the card) instead of
+    indexing with an undefined integer."""
+    p = problem
+    kf = torch.from_numpy(p["imgs"][0])
+    flat = torch.full_like(kf, 100.0)
+    g = torch.full_like(kf, 1000.0)
+    lanes = _2dof_args(p)[4:]
+    act = torch.from_numpy(p["act"])
+    out = GN.refine_2dof_batch(kf, flat, g, g, *lanes, active=act, tile=32)
+    assert out.delta[act].isnan().all()
+    assert (out.iters[act] == 20).all()
+    assert not out.delta[~act].isnan().any()
+
+
+@pytest.mark.parametrize("refiner", ["epipolar", "2dof"])
 def test_cpu_tensors_take_the_twin_and_kernel_wrapper_refuses_them(
-        problem, monkeypatch):
+        problem, monkeypatch, refiner):
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 
     def no_build():
         raise AssertionError("CPU tensors must not build or launch a kernel")
 
     monkeypatch.setattr(CB, "lib", no_build)
-    args = _port_args(problem)
     act = torch.from_numpy(problem["act"])
+    B = act.shape[0]
+    if refiner == "epipolar":
+        args = _port_args(problem)
+        batch, kernel, delta0 = (GN.refine_along_epipolar_batch,
+                                 GN.refine_along_epipolar_cuda,
+                                 torch.zeros(B))
+    else:
+        args = _2dof_args(problem)
+        batch, kernel, delta0 = (GN.refine_2dof_batch, GN.refine_2dof_cuda,
+                                 torch.zeros(B, 2))
     before = dict(CB.LAUNCHES)
-    GN.refine_along_epipolar_batch(*args, active=act, tile=32)
+    batch(*args, active=act, tile=32, phase1_iters=2, phase2_budget=64)
     assert CB.LAUNCHES == before
     with pytest.raises(ValueError):
-        GN.refine_along_epipolar_cuda(*args, torch.zeros(act.shape[0]), act,
-                                      0, 20)
+        kernel(*args, delta0, act, 0, 20)

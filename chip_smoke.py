@@ -20,9 +20,14 @@ Phases (each passes or exits non-zero):
      steps timed by `StageTimer`; then the prediction-mode temporal step
      of frame 2 again, 3 times, each stage of it timed (synchronised);
  6b. K3 (2-DoF KF -> CF GN) vs its plain twin, bit for bit, on the
-     operands frame 2's temporal step gave it, both sides: as one
-     20-iteration launch and as the pipeline's two phases; each form
-     timed beside its bound, and the twin timed;
+     operands frame 2's temporal step gave `refine_2dof_pair_batch`,
+     both sides in one launch: as one 20-iteration launch and as the
+     main path's two launches (phase 2's lanes picked on the device),
+     also against the per-side form (`_two_phase`: a sort, gathers and
+     merges around one-side launches); each form, the per-side form and
+     the pair interleave timed beside its bound (the two launches and the
+     glue between them apart), the twin and the watch of the lanes'
+     deltas timed; registers, spills and warps an SM;
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -49,7 +54,9 @@ Phases (each passes or exits non-zero):
      (cli.run, adaptive keyframes, BA window 5) on 25 frames of
      `make_corridor_sequence` at 376x1241: no collapsed frame, a pose on
      every frame, ATE under 5% of the GT path;
-last, a fourth production frame under `device_trace` (torch.profiler):
+On every path (6-10) the active K3 lanes are checked for a finite
+delta, and the lanes ended by the singular-lane guard are counted.
+Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
 the launches of each driven path), then as the last line
@@ -207,8 +214,7 @@ def with_bound(ms, flops, nbytes, fma_free=False):
 
 def same_lanes(x, y, mask, what):
     """Fail unless two GN results (delta, score, conf, valid, iters, done)
-    are bit-equal on the lanes of `mask`; a NaN equals a NaN (a 2-DoF lane
-    whose normal equations went singular carries NaN in both)."""
+    are bit-equal on the lanes of `mask`; a NaN equals a NaN."""
     for nm, u, v in zip(("delta", "score", "conf", "valid", "iters", "done"),
                         x, y):
         ne = u != v
@@ -258,7 +264,8 @@ def temporal_split(step, args, reps=3):
     from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
 
     stages = ((TM, "match_temporal", "match_temporal"),
-              (GN, "refine_2dof_batch", "refine_2dof_batch (2 sides)"),
+              (GN, "interleave_pair_maps", "interleave_pair_maps"),
+              (GN, "refine_2dof_pair_batch", "refine_2dof_pair_batch"),
               (CL, "cluster_edges", "cluster_edges"),
               (TM, "_row_chunked", "dense NCC + descriptor gates"),
               (MT, "lift_quads", "lift_quads"),
@@ -352,84 +359,271 @@ def traj_arrays(pipe):
             torch.stack([p.t for p in pipe.trajectory]).double().cpu().numpy())
 
 
-def phase_k3(k3_ops, card, H, W):
-    """Phase 6b: K3 against its twin on the recorded operands of the two
-    sides of one temporal step, `k3_ops` the (args, kwargs) of each
-    `refine_2dof_batch` call; timed. Returns the kernel's JSON entry."""
+class K3Watch:
+    """While installed, counts over every call of K3's sides entry the
+    active lanes whose delta is not finite and the lanes the singular-lane
+    guard ended (done without a score after at least one iteration). The
+    counts stay on the card until read, so the path gets no host sync;
+    they cost a few small kernels a temporal step, inside the timed
+    windows of the paths it watches (phase 6b times them: `lane_counts`)."""
+
+    def __init__(self):
+        from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+        self.GN, self.counts, self.orig = GN, [], None
+
+    @staticmethod
+    def lane_counts(res, done, active):
+        """(non-finite deltas, guard-ended lanes) among the active lanes
+        of one call's (S RefineResults, done (S, B)), on the card."""
+        d = torch.stack([r.delta for r in res])
+        sc = torch.stack([r.score for r in res])
+        it = torch.stack([r.iters for r in res])
+        return torch.stack([(~torch.isfinite(d).all(-1) & active).sum(),
+                            (done & (sc == 1e6) & (it > 0) & active).sum()])
+
+    def __enter__(self):
+        orig = self.orig = self.GN.refine_2dof_sides_cuda
+
+        def watched(kf_imgs, maps4, kpack, cpack, active, **kw):
+            res, done = orig(kf_imgs, maps4, kpack, cpack, active, **kw)
+            self.counts.append(self.lane_counts(res, done, active))
+            return res, done
+        self.GN.refine_2dof_sides_cuda = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.GN.refine_2dof_sides_cuda = self.orig
+
+    def read(self, path):
+        """(calls, non-finite, guard-ended) so far; fails on a non-finite
+        delta."""
+        tot = (torch.stack(self.counts).sum(0).tolist() if self.counts
+               else [0, 0])
+        check(tot[0] == 0, f"{path}: {tot[0]} active K3 lanes returned a "
+                           f"non-finite delta")
+        return len(self.counts), tot[0], tot[1]
+
+
+def k3_side(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta,
+            d0, active, it0, it_stop, patch_size=7, max_iter=20, tol=1e-3,
+            huber_delta=3.0, tile=32, maps4=None):
+    """`refine_2dof_plain`'s contract on K3: its sides entry over one
+    side, from an explicit d0, iterations [it0, it_stop). `maps4`: the
+    side's interleaved CF maps, made here if None."""
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 
-    k3, k3_err, k3_plain = {}, 0.0, {}
-    for side, (a3, kw3) in zip(("left", "right"), k3_ops):
-        act3 = kw3["active"]
-        B3 = act3.shape[0]
-        P3, mi3 = kw3["patch_size"], kw3["max_iter"]
-        g3 = dict(patch_size=P3, max_iter=mi3, tol=kw3["tol"],
-                  huber_delta=kw3["huber_delta"], tile=kw3["tile"])
-        imgs3 = a3[:4]
-        lanes3 = tuple(t.contiguous() for t in a3[4:])
-        d03 = torch.stack([a3[4] - a3[7], a3[5] - a3[8]], -1)
-        maps43 = GN.interleave_maps(*imgs3[1:])
-        rk, dk = GN.refine_2dof_cuda(*imgs3, *lanes3, d03, act3, 0, mi3,
-                                     maps4=maps43, **g3)
-        rp, dp = GN.refine_2dof_plain(*imgs3, *lanes3, d03, act3, 0, mi3,
-                                      **g3)
+    if maps4 is None:
+        maps4 = GN.interleave_maps(cf_img, cf_gx, cf_gy)
+    out = GN.k3_outputs(1, kx.shape[0], kx.device)
+    GN._k3_launch([kf_img], maps4[None], torch.stack([kx, ky, ktheta], -1),
+                  torch.stack([cx, cy, ctheta], -1), active, out, it0,
+                  it_stop, max_iter, patch_size, tol, huber_delta, tile,
+                  d0=d0[None].contiguous())
+    return GN.RefineResult(*(t[0] for t in out[:5])), out[5][0]
+
+
+def k3_split_times(launch_args, kw, reps):
+    """Device ms of K3's two launches on the main path and of the glue
+    between them (the cumsum of `done` and the queue's zeroed counter),
+    each from its own pair of CUDA events, mean of `reps` runs; the state
+    after phase 1 (iters, done) and the (d, score, conf, valid, iters,
+    done) buffers after phase 2."""
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    kfs, maps4, kpack, cpack, act = launch_args
+    B = kpack.shape[0]
+    lk = dict(max_iter=kw["max_iter"], patch_size=kw["patch_size"],
+              tol=kw["tol"], huber_delta=kw["huber_delta"], tile=kw["tile"])
+    p1 = kw["phase1_iters"]
+    B2 = min(B, max(kw["chunk"], kw["phase2_budget"]))
+    out = GN.k3_outputs(len(kfs), B, kpack.device)
+    marks, after1 = [], None
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        GN._k3_launch(kfs, maps4, kpack, cpack, act, out, 0, p1, **lk)
+        ev[1].record()
+        if after1 is None:
+            after1 = (out[4].clone(), out[5].clone())
+        cum = torch.cumsum(out[5].view(-1), 0, dtype=torch.int32)
+        counter = torch.zeros(1, dtype=torch.int32, device=kpack.device)
+        ev[2].record()
+        GN._k3_launch(kfs, maps4, kpack, cpack, act, out, p1, kw["max_iter"],
+                      **lk, queue=(cum, B2, counter))
+        ev[3].record()
+        if r:                       # the first run warms up
+            marks.append(ev)
+    torch.cuda.synchronize()
+    t = [sum(e[k].elapsed_time(e[k + 1]) for e in marks) / reps
+         for k in range(3)]
+    return dict(phase1=t[0], glue=t[1], phase2=t[2]), after1, B2, out
+
+
+def phase_k3(k3_ops, card, H, W):
+    """Phase 6b: K3 against its twin on the operands frame 2's temporal
+    step gave `refine_2dof_pair_batch` (`k3_ops`: its (args, kwargs)),
+    both sides: the both-sides launch as one 20-iteration launch and as
+    the main path's two launches, against the plain twin and against the
+    per-side form (`_two_phase`'s sort, gathers and merges around
+    one-side launches); each form timed beside its bound, the per-side
+    form, the twin and `K3Watch`'s counts timed. Returns the kernel's
+    JSON entry."""
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    (a3, kw3), = k3_ops
+    kfs, maps4, kpack, cpack, act3 = [a3[0], a3[1]], a3[2], a3[3], a3[4], a3[5]
+    kpack, cpack = kpack.contiguous(), cpack.contiguous()
+    B3 = act3.shape[0]
+    P3, mi3, p13 = kw3["patch_size"], kw3["max_iter"], kw3["phase1_iters"]
+    g3 = dict(patch_size=P3, max_iter=mi3, tol=kw3["tol"],
+              huber_delta=kw3["huber_delta"], tile=kw3["tile"])
+    ph3 = dict(phase1_iters=p13, phase2_budget=kw3["phase2_budget"],
+               max_iter=mi3, chunk=kw3["chunk"])
+    names = ("left", "right")
+    # each side's operands in the per-side form
+    sides = []
+    for s in range(2):
+        imgs = (kfs[s], *(maps4[s, ..., k].contiguous() for k in range(3)))
+        lanes = tuple(t[:, 3 * s + k].contiguous() for t in (kpack, cpack)
+                      for k in range(3))
+        d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
+        sides.append((imgs, lanes, d0))
+
+    # the both-sides launch as one 20-iteration launch, against the twin
+    one, one_done = GN.refine_2dof_sides_cuda(kfs, maps4, kpack, cpack,
+                                              act3, **g3)
+    err = 0.0
+    for s, (imgs, lanes, d0) in enumerate(sides):
+        rp, dp = GN.refine_2dof_plain(*imgs, *lanes, d0, act3, 0, mi3, **g3)
         torch.cuda.synchronize()
-        same_lanes((*rk, dk), (*rp, dp), act3,
-                   f"K3 {side} side, one {mi3}-iteration launch")
-        k3_err = max(k3_err, float(torch.nan_to_num(
-            (rk.delta - rp.delta).abs(), nan=0.0)[act3].max()))
-        calls3 = []
-        p3_kw = dict(phase1_iters=kw3["phase1_iters"],
-                     phase2_budget=kw3["phase2_budget"], max_iter=mi3,
-                     chunk=kw3["chunk"])
-        r2k = GN._two_phase(recorder(GN.refine_2dof_cuda, imgs3, g3, calls3,
-                                     maps4=maps43), B3, lanes3, act3, d03,
-                            **p3_kw)
-        r2p = GN._two_phase(recorder(GN.refine_2dof_plain, imgs3, g3, []),
-                            B3, lanes3, act3, d03, **p3_kw)
-        r2b = GN.refine_2dof_batch(*a3, **kw3)
+        same_lanes((*one[s], one_done[s]), (*rp, dp), act3,
+                   f"K3 {names[s]} side, both-sides {mi3}-iteration launch")
+        err = max(err, float((one[s].delta - rp.delta).abs()[act3].max()))
+    # the main path's two launches (refine_2dof_pair_batch), against the
+    # twin's in-place form and against the per-side form on the kernel
+    CB.reset_launch_counts()
+    two = GN.refine_2dof_pair_batch(*a3, **kw3)
+    torch.cuda.synchronize()
+    check(CB.LAUNCHES["refine_2dof"] == 2,
+          f"K3: {CB.LAUNCHES['refine_2dof']} launches for the two phases "
+          f"of both sides")
+    plains = []
+    for s, (imgs, lanes, d0) in enumerate(sides):
+        plain = GN._two_phase_in_place(
+            lambda a, d, it0, it_stop, ac: GN.refine_2dof_plain(
+                *imgs, *a, d, ac, it0, it_stop, **g3),
+            B3, lanes, act3, d0, **ph3)
+        old = GN._two_phase(recorder(k3_side, imgs, g3, [],
+                                     maps4=maps4[s]), B3, lanes, act3, d0,
+                            **ph3)
         torch.cuda.synchronize()
-        same_lanes(r2k, r2p, act3, f"K3 {side} side, two phases")
-        same_lanes(r2k, r2b, act3,
-                   f"K3 {side} side, two phases vs refine_2dof_batch")
-        check(len(calls3) == 2, f"K3: {len(calls3)} launches for two phases")
-        forms3 = {f"one_launch_{mi3}": (lanes3, d03, 0, mi3, act3)}
-        forms3["phase1"], forms3["phase2"] = calls3
-        rows = gn_forms(
-            lambda args, d0, it0, it_stop, fact: GN.refine_2dof_cuda(
-                *imgs3, *args, d0, fact, it0, it_stop, maps4=maps43, **g3),
-            forms3, k3_work, P3, H, W)
-        k3_plain[side] = cuda_ms(lambda: GN.refine_2dof_plain(
-            *imgs3, *lanes3, d03, act3, 0, mi3, **g3), 3)
-        n_nan = int((rk.delta.isnan().any(-1) & act3).sum())
-        for form, row in rows.items():
-            k3[f"{side}_{form}"] = row
-            print(f"K3 {side} {form}: {row['lanes']} lanes, {row['active']} "
-                  f"active, {row['iterations']} lane-iterations; "
-                  f"{row['ms']:.4f} ms; bound {row['bound_ms'] * 1e3:.1f} us "
-                  f"({row['bound_by']}), {row['pct_of_bound']:.1f}% of it; "
-                  f"FMA-free bound {row['bound_ms_no_fma'] * 1e3:.1f} us, "
-                  f"{row['pct_of_bound_no_fma']:.1f}% of it")
-        print(f"K3 {side} side (B={B3}, active {int(act3.sum())}, {n_nan} "
-              f"with a NaN step): bit-equal to its twin on every active "
-              f"lane, as one launch and as two phases; plain "
-              f"{k3_plain[side]:.3f} ms")
-    ms_maps43 = cuda_ms(lambda: GN.interleave_maps(*imgs3[1:]), 50)
-    step3 = sum(k3[f"{sd}_{f}"]["ms"] for sd in ("left", "right")
-                for f in ("phase1", "phase2"))
-    print(f"K3 refine_2dof: one temporal step's four launches {step3:.4f} ms "
-          f"+ 2 interleaves of {ms_maps43:.4f} ms [{card}]")
-    w3 = k3[f"left_one_launch_{mi3}"]
+        same_lanes(two[s], plain[0], act3,
+                   f"K3 {names[s]} side, two launches vs the twin")
+        same_lanes(two[s], old, act3,
+                   f"K3 {names[s]} side, two launches vs _two_phase over "
+                   f"one-side launches")
+        err = max(err, float((two[s].delta - plain[0].delta
+                              ).abs()[act3].max()))
+        plains.append(plain)
+
+    # the both-sides forms: one 20-iteration launch, and the two launches
+    # with the glue between them timed apart
+    def both_work(iters_run, fact):
+        w = [k3_work(iters_run[s], fact[s], P3, H, W) for s in range(2)]
+        return sum(x[0] for x in w), sum(x[1] for x in w)
+
+    k3 = {}
+    it_one = (torch.stack([r.iters for r in one]).long()
+              * act3).cpu().numpy()
+    actn = np.stack([act3.cpu().numpy()] * 2)
+    k3["both_one_launch_20"] = with_bound(
+        cuda_ms(lambda: GN.refine_2dof_sides_cuda(kfs, maps4, kpack, cpack,
+                                                  act3, **g3), 20),
+        *both_work(it_one, actn), fma_free=True)
+    t, (it1, done1), B2, out = k3_split_times(
+        (kfs, maps4, kpack, cpack, act3), kw3, 20)
+    # the buffers the main path's launches left, done included, against
+    # the twin's in-place form
+    for s, (plain, pdone) in enumerate(plains):
+        same_lanes([u[s] for u in out], (*plain, pdone), act3,
+                   f"K3 {names[s]} side, state after phase 2 (done "
+                   f"included) vs the twin")
+    sel = GN.phase2_lanes(done1, B2)
+    run1 = (it1.long() * act3).cpu().numpy()
+    run2 = ((out[4].long() - p13).clamp(min=0) * sel).cpu().numpy()
+    k3["both_phase1"] = with_bound(t["phase1"], *both_work(run1, actn),
+                                   fma_free=True)
+    k3["both_phase2"] = with_bound(t["phase2"], *both_work(
+        run2, sel.cpu().numpy()), fma_free=True)
+    main = with_bound(t["phase1"] + t["phase2"],
+                      *both_work(run1 + run2, actn), fma_free=True)
+    ms_inter = cuda_ms(lambda: GN.interleave_pair_maps(
+        *((maps4[s, ..., 0], maps4[s, ..., 1], maps4[s, ..., 2])
+          for s in range(2))), 50)
+    ms_pair = cuda_ms(lambda: GN.refine_2dof_pair_batch(*a3, **kw3), 20)
+    ms_watch = cuda_ms(lambda: K3Watch.lane_counts(one, one_done, act3), 50)
+
+    def old_step():
+        for imgs, lanes, d0 in sides:
+            m4 = GN.interleave_maps(*imgs[1:])
+            GN._two_phase(recorder(k3_side, imgs, g3, [], maps4=m4), B3,
+                          lanes, act3, d0, **ph3)
+    # the per-side form does the main path's lane-iterations: its bound
+    k3["per_side_form"] = with_bound(cuda_ms(old_step, 20),
+                                     *both_work(run1 + run2, actn),
+                                     fma_free=True)
+    ms_old = k3["per_side_form"]["ms"]
+    # the pair interleave reads 3 maps and writes one 16-byte map a side
+    inter = with_bound(ms_inter, 0, 2 * H * W * (3 * 4 + 16))
+    ms_plain = cuda_ms(lambda: [GN._two_phase_in_place(
+        lambda a, d, it0, it_stop, ac, imgs=imgs: GN.refine_2dof_plain(
+            *imgs, *a, d, ac, it0, it_stop, **g3),
+        B3, lanes, act3, d0, **ph3) for imgs, lanes, d0 in sides], 1)
+    info = GN.k3_info()
+    for form, row in k3.items():
+        print(f"K3 {form}: {row['ms']:.4f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), "
+              f"{row['pct_of_bound']:.1f}% of it; FMA-free bound "
+              f"{row['bound_ms_no_fma'] * 1e3:.1f} us, "
+              f"{row['pct_of_bound_no_fma']:.1f}% of it")
+    n_sel = int(sel.sum())
+    print(f"K3 both sides (B={B3} a side, active {int(act3.sum())}, phase 2 "
+          f"on {n_sel} lanes picked on the device, budget {B2} a side): "
+          f"bit-equal to its twin on every active lane, as one launch and as "
+          f"two launches (done included), and to _two_phase over one-side "
+          f"launches")
+    print(f"K3 refine_2dof: a temporal step's two launches "
+          f"{main['ms']:.4f} ms (phase 1 {t['phase1']:.4f} + phase 2 "
+          f"{t['phase2']:.4f}), {main['pct_of_bound']:.1f}% of their "
+          f"{main['bound_ms'] * 1e3:.1f} us bound; glue between them "
+          f"(cumsum, counter) {t['glue']:.4f} ms; pair interleave "
+          f"{ms_inter:.4f} ms ({inter['pct_of_bound']:.1f}% of its "
+          f"{inter['bound_ms'] * 1e3:.1f} us bound, bytes); "
+          f"refine_2dof_pair_batch whole {ms_pair:.4f} "
+          f"ms; the per-side form (4 one-side launches, 2 interleaves, "
+          f"sort, gathers, merges) {ms_old:.4f} ms; plain twin (both "
+          f"sides, two phases in place) {ms_plain:.1f} ms; K3Watch's counts "
+          f"{ms_watch:.4f} ms a call [{card}]")
+    print(f"K3 registers / spill bytes / blocks an SM / warps an SM: direct "
+          f"(phase 1) {info['direct_registers']} / "
+          f"{info['direct_local_bytes']} / {info['direct_blocks_per_sm']} / "
+          f"{info['direct_warps_per_sm']}; queue (phase 2) "
+          f"{info['queue_registers']} / {info['queue_local_bytes']} / "
+          f"{info['queue_blocks_per_sm']} / {info['queue_warps_per_sm']} "
+          f"({info['warps_per_block']} warps a block; "
+          f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return dict(
         name="refine_2dof", route="cuda",
         source="edge_based_visual_odometry_tpu_torch/csrc/gn_2dof.cu",
         replaces="edge_based_visual_odometry_tpu/ops/gauss_newton.py:387",
-        max_abs_err=k3_err, plain_ms=k3_plain["left"], library_ms=None,
-        maps_interleave_ms=ms_maps43, step_launches_ms=step3, **w3,
+        max_abs_err=err, plain_ms=ms_plain, library_ms=None,
+        maps_interleave_ms=ms_inter, step_launches_ms=main["ms"],
+        glue_ms=t["glue"], pair_batch_ms=ms_pair, per_side_form_ms=ms_old,
+        watch_ms=ms_watch, phase2_lanes=n_sel, occupancy=info, **main,
         forms={f: {k: r[k] for k in (
             "ms", "bound_ms", "bound_by", "pct_of_bound", "bound_ms_no_fma",
-            "pct_of_bound_no_fma", "lanes", "active", "iterations")}
-            for f, r in k3.items()})
+            "pct_of_bound_no_fma") if k in r} for f, r in k3.items()})
 
 
 def phase_sequence(seq, images, card, work_dir):
@@ -480,7 +674,7 @@ def phase_sequence(seq, images, card, work_dir):
         k = pf["k"]
         check(pf["launches"]["toed_gradient_field"] >= 1
               and pf["launches"]["refine_along_epipolar"] >= 1
-              and pf["launches"]["refine_2dof"] == (4 if k else 0),
+              and pf["launches"]["refine_2dof"] == (2 if k else 0),
               f"sequence frame {k}: kernel launches {pf['launches']}")
         check(pf["mates"] >= 21000,
               f"sequence frame {k}: mates {pf['mates']} < 21000")
@@ -1049,21 +1243,21 @@ def main():
     pipe = PL.VOPipeline(seq.rig, cfg, device=dev,
                          keyframe_policy="every_frame")
     # the prediction-mode temporal step (frame 2) keeps its arguments, and
-    # the operands it gives K3 (refine_2dof_batch, once per side)
+    # the operands it gives K3 (refine_2dof_pair_batch, both sides)
     predict, pred_args, k3_ops = pipe._temporal_step, [], []
 
     def recording_predict(*step_args):
         pred_args[:] = [step_args]
-        batch = GN.refine_2dof_batch
+        batch = GN.refine_2dof_pair_batch
 
         def rec(*a3, **kw3):
             k3_ops.append((a3, kw3))
             return batch(*a3, **kw3)
-        GN.refine_2dof_batch = rec
+        GN.refine_2dof_pair_batch = rec
         try:
             return predict(*step_args)
         finally:
-            GN.refine_2dof_batch = batch
+            GN.refine_2dof_pair_batch = batch
 
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
@@ -1076,17 +1270,19 @@ def main():
     torch.cuda.synchronize()
     CB.reset_launch_counts()
     per_frame = []
-    for k, (l, r) in enumerate(frames):
-        before = dict(CB.LAUNCHES)
-        t = time.perf_counter()
-        fr, tr = pipe.run_frame(l, r)
-        torch.cuda.synchronize()
-        frame_ms = (time.perf_counter() - t) * 1e3
-        step_ms = {nm.split()[0]: ts[-1] * 1e3
-                   for nm, ts in timer.times.items()}
-        per_frame.append((fr, tr, {n: CB.LAUNCHES[n] - before[n]
-                                   for n in before}, step_ms, frame_ms))
+    with K3Watch() as watch:
+        for k, (l, r) in enumerate(frames):
+            before = dict(CB.LAUNCHES)
+            t = time.perf_counter()
+            fr, tr = pipe.run_frame(l, r)
+            torch.cuda.synchronize()
+            frame_ms = (time.perf_counter() - t) * 1e3
+            step_ms = {nm.split()[0]: ts[-1] * 1e3
+                       for nm, ts in timer.times.items()}
+            per_frame.append((fr, tr, {n: CB.LAUNCHES[n] - before[n]
+                                       for n in before}, step_ms, frame_ms))
     launches = dict(CB.LAUNCHES)
+    k3_lanes = {"frame": watch.read("frame")}
 
     record = []
     for k, (fr, tr, dl, ms, frame_ms) in enumerate(per_frame):
@@ -1094,8 +1290,8 @@ def main():
         rows = fr.stereo_metrics[:, 1].cpu().numpy().astype(int).tolist()
         check(dl["toed_gradient_field"] >= 1, f"frame {k}: K1 not launched")
         check(dl["refine_along_epipolar"] >= 1, f"frame {k}: K2 not launched")
-        # K3: two phases for each side of a temporal step
-        check(dl["refine_2dof"] == (4 if k else 0),
+        # K3: two launches a temporal step, each for both sides
+        check(dl["refine_2dof"] == (2 if k else 0),
               f"frame {k}: K3 launched {dl['refine_2dof']} times")
         m = fr.mates
         v = m.valid
@@ -1133,12 +1329,12 @@ def main():
     print(timer.report())
     pipe._temporal_step = functools.partial(timer.timed, "temporal step",
                                             predict)
-    check(len(k3_ops) == 2 and len(pred_args) == 1,
-          f"frame 2: {len(k3_ops)} refine_2dof_batch calls recorded")
+    check(len(k3_ops) == 1 and len(pred_args) == 1,
+          f"frame 2: {len(k3_ops)} refine_2dof_pair_batch calls recorded")
     split = temporal_split(predict, pred_args[0])
     split["rest of match_temporal"] = split["match_temporal"] - sum(
-        split[nm] for nm in ("refine_2dof_batch (2 sides)", "cluster_edges",
-                             "dense NCC + descriptor gates"))
+        split[nm] for nm in ("interleave_pair_maps", "refine_2dof_pair_batch",
+                             "cluster_edges", "dense NCC + descriptor gates"))
     print(f"temporal step of frame 2 (prediction mode), per stage, each "
           f"synchronised, mean of 3, ms: "
           + ", ".join(f"{nm} {ms:.2f}" for nm, ms in split.items())
@@ -1151,14 +1347,26 @@ def main():
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke")
     shutil.rmtree(work_dir, ignore_errors=True)
-    by_path = {"frame": launches,
-               "sequence": phase_sequence(seq, seq_images, card, work_dir),
-               "evaluation": phase_evaluation(seq, card, work_dir, dev)}
+    by_path = {"frame": launches}
+    with K3Watch() as watch:
+        by_path["sequence"] = phase_sequence(seq, seq_images, card, work_dir)
+    k3_lanes["sequence"] = watch.read("sequence")
+    with K3Watch() as watch:
+        by_path["evaluation"] = phase_evaluation(seq, card, work_dir, dev)
+    k3_lanes["evaluation"] = watch.read("evaluation")
 
     # ---- 9, 9b, 10. multi-device pair step, sharded BA, corridor ----
-    by_path["pair_step"] = phase_pair_step(seq, seq_images, card, dev)
+    with K3Watch() as watch:
+        by_path["pair_step"] = phase_pair_step(seq, seq_images, card, dev)
+    k3_lanes["pair_step"] = watch.read("pair step")
     phase_ba_ranks(card, work_dir)
-    by_path["corridor"] = phase_corridor(card, work_dir)
+    with K3Watch() as watch:
+        by_path["corridor"] = phase_corridor(card, work_dir)
+    k3_lanes["corridor"] = watch.read("corridor")
+    print("K3 per path (calls of the sides entry, active lanes with a "
+          "non-finite delta, lanes ended by the singular-lane guard): "
+          + "; ".join(f"{p} {c} / {n} / {g}" for p, (c, n, g)
+                      in k3_lanes.items()))
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they
@@ -1174,8 +1382,9 @@ def main():
     dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     check(dev_ms > 0, "traced frame 3: the profiler saw no device time")
     print(f"traced frame 3: {sum(e.count for e in on_card)} kernels and "
-          f"copies, {dev_ms:.1f} ms on the card in {traced_ms:.1f} ms of "
-          f"wall time under the profiler (busy share "
+          f"copies (6,830 with the per-side K3 driver), {dev_ms:.1f} ms "
+          f"on the card in "
+          f"{traced_ms:.1f} ms of wall time under the profiler (busy share "
           f"{dev_ms / traced_ms:.2f}) [{card}]")
     shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1202,7 +1411,8 @@ def main():
         | {k: v for k, v in kd.items() if k in (
             "bound_ms_no_fma", "pct_of_bound_no_fma", "maps_interleave_ms",
             "values_not_bit_equal", "forms", "launches_by_path",
-            "step_launches_ms")}
+            "step_launches_ms", "glue_ms", "pair_batch_ms",
+            "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,7 @@ hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use:
 
   - `ops.toed.toed_gradient_field`             (TOED filter bank)
   - `ops.gauss_newton.refine_along_epipolar`   (1-DoF epipolar GN)
-  - `ops.gauss_newton.refine_2dof`             (2-DoF KF->CF GN)
+  - `ops.gauss_newton.refine_2dof_pair_batch`  (2-DoF KF->CF GN)
 
 Each has a plain-PyTorch twin in the same module; a CPU tensor goes to
 the twin, a CUDA tensor to the kernel.

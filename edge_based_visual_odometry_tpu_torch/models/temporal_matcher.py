@@ -261,21 +261,15 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
     c_pack = torch.stack([q.lcx, q.lcy, q.lct, q.rcx, q.rcy, q.rct],
                          -1).reshape(M * Cq, 6)[rows * Cq + slots]
 
-    def refine_side(kf_img, cf_img, cf_gx, cf_gy, o):
-        return GN.refine_2dof_batch(
-            kf_img, cf_img, cf_gx, cf_gy,
-            kf_pack[:, o], kf_pack[:, o + 1], kf_pack[:, o + 2],
-            c_pack[:, o], c_pack[:, o + 1], c_pack[:, o + 2],
-            patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter,
-            tol=cfg.gn_tol, huber_delta=cfg.temporal_huber_delta,
-            tile=cfg.gn_tile, chunk=cfg.gn_chunk, active=fmask,
-            phase1_iters=cfg.gn_phase1_iters,
-            phase2_budget=cfg.gn_phase2_budget)
-
-    res_l = refine_side(kf_frame.left, cf_frame.left, cf_frame.left_gx,
-                        cf_frame.left_gy, 0)
-    res_r = refine_side(kf_frame.right, cf_frame.right, cf_frame.right_gx,
-                        cf_frame.right_gy, 3)
+    maps4 = GN.interleave_pair_maps(
+        (cf_frame.left, cf_frame.left_gx, cf_frame.left_gy),
+        (cf_frame.right, cf_frame.right_gx, cf_frame.right_gy))
+    res_l, res_r = GN.refine_2dof_pair_batch(
+        kf_frame.left, kf_frame.right, maps4, kf_pack, c_pack, fmask,
+        patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter, tol=cfg.gn_tol,
+        huber_delta=cfg.temporal_huber_delta, tile=cfg.gn_tile,
+        chunk=cfg.gn_chunk, phase1_iters=cfg.gn_phase1_iters,
+        phase2_budget=cfg.gn_phase2_budget)
     # refined location = kf - d, applied per side where that side is valid
     new_lx = torch.where(res_l.valid, kf_pack[:, 0] - res_l.delta[:, 0], c_pack[:, 0])
     new_ly = torch.where(res_l.valid, kf_pack[:, 1] - res_l.delta[:, 1], c_pack[:, 1])

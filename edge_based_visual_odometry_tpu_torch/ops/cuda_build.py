@@ -38,14 +38,18 @@ LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the GN kernels' entries: images, H, W, lanes, B .. stride, tol, huber,
-# outputs, stream
+# K2's entry: images, H, W, lanes, B .. stride, tol, huber, outputs, stream
 _GN_ARGS = [_P] * 2 + [_I] * 2 + [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P] * 7
 # C entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
     "toed_gradient_field_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "refine_along_epipolar_launch": _GN_ARGS,
-    "refine_2dof_launch": _GN_ARGS,
+    # K3's sides entry: images, H, W, packs, d0, nsides, active, B ..
+    # stride, tol, huber, cum_done, budget, counter, outputs, stream
+    "refine_2dof_sides_launch": ([_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P]
+                                 + [_I] * 7 + [_F] * 2 + [_P, _I, _P]
+                                 + [_P] * 7),
+    "refine_2dof_info": [_P],
 }
 
 _lock = threading.Lock()

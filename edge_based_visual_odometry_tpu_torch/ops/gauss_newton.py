@@ -9,9 +9,12 @@ gauss_newton.py`. Both work on mean-centred two-side rotated 7x7 patches
     `csrc/epipolar_gn.cu`; on CPU tensors its plain twin
     `refine_along_epipolar_plain`. `refine_along_epipolar_batch` drives it
     through the reference's two-phase convergence compaction.
-  - `refine_2dof_batch` - the 2-DoF KF->CF translation refiner, driven
-    the same way: the hand-written kernel `csrc/gn_2dof.cu` on CUDA
-    tensors, its plain twin `refine_2dof_plain` on CPU tensors.
+  - `refine_2dof_batch` - the 2-DoF KF->CF translation refiner of one
+    side, and `refine_2dof_pair_batch`, both sides of a temporal step: on
+    CUDA tensors the hand-written kernel `csrc/gn_2dof.cu` (K3), one
+    launch a phase for both sides, phase 2's lanes picked on the device
+    (`refine_2dof_sides_cuda`); on CPU tensors the two-phase loop over its
+    plain twin `refine_2dof_plain`.
 
 Results the reference's TPU layout introduced, kept here because they
 change results: every right/CF sample is clamped to the atlas tile the
@@ -23,6 +26,7 @@ valid=False.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -154,7 +158,7 @@ def interleave_maps(right_img, right_gx, right_gy):
     return torch.stack([right_img, right_gx, right_gy, right_img], -1)
 
 
-_PAIRS = ("epi_dir", "d0")     # the (B, 2) lane operands; the others are (B,)
+_PAIRS = ("epi_dir",)     # the (B, 2) lane operands; the others are (B,)
 
 
 def _launch_gn(entry: str, img, maps, maps4, lanes, active, it0: int,
@@ -304,7 +308,15 @@ def refine_2dof_plain(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
     lane; the CF patch centre is kf - d, rotated by the CF orientation.
     Returns (RefineResult, done); inactive lanes start done. Sums follow
     the kernel's lane order and divisions by constants are reciprocal
-    multiplies, as in the kernel, so both do the same arithmetic."""
+    multiplies, as in the kernel, so both do the same arithmetic.
+
+    A lane whose step is not finite (its 2x2 system is singular: det
+    rounds to 0, as on flat CF maps with large equal gradients) takes no
+    step, is done, and gets no score from that iteration (1e6 / 0 /
+    valid=False if it had not finished before), as the reference's 1-DoF
+    refiner treats a degenerate system. A documented deviation: the
+    reference's 2-DoF refiner takes the step, and whether that step is
+    NaN depends on its reduction order."""
     side = patch_size / 2.0 + 1.0
     pp = patch_size * patch_size
     n_samples = 2 * pp
@@ -348,46 +360,162 @@ def refine_2dof_plain(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
         rms = torch.sqrt(cost * (1.0 / n_samples))
         step = torch.sqrt(delta[:, 0] * delta[:, 0]
                           + delta[:, 1] * delta[:, 1])
+        # a singular system (det rounds to 0): no step, no score, stop
+        singular = ~torch.isfinite(delta).all(-1)
         converged = (step < tol) | (it == max_iter - 1)
         is_outlier = (rms > huber_delta * 2.0) | (it < 1)
-        finish = converged & ~done
+        finish = converged & ~done & ~singular
         score = torch.where(finish, rms, score)
         conf = torch.where(finish, torch.exp(-rms * (1.0 / huber_delta)),
                            conf)
         valid = torch.where(finish, ~is_outlier, valid)
-        d = torch.where(done[:, None], d, d + delta)
+        d = torch.where((done | singular)[:, None], d, d + delta)
         iters = torch.where(done, iters, torch.full_like(iters, it + 1))
-        done = done | converged
+        done = done | converged | singular
     return RefineResult(d, score, conf, valid, iters), done
 
 
-def refine_2dof_cuda(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy,
-                     ctheta, d0, active, it0: int, it_stop: int,
-                     patch_size: int = 7, max_iter: int = 20,
-                     tol: float = 1e-3, huber_delta: float = 3.0,
-                     tile: int = 32, maps4=None):
-    """The hand-written kernel K3 (csrc/gn_2dof.cu): same contract as
-    `refine_2dof_plain`, for CUDA tensors; `maps4` as for
-    `refine_along_epipolar_cuda`, of the CF maps."""
-    return _launch_gn(
-        "refine_2dof", ("kf_img", kf_img),
-        (("cf_img", cf_img), ("cf_gx", cf_gx), ("cf_gy", cf_gy)), maps4,
-        (("kx", kx), ("ky", ky), ("ktheta", ktheta), ("cx", cx), ("cy", cy),
-         ("ctheta", ctheta), ("d0", d0)), active, it0, it_stop, patch_size,
-        max_iter, tol, huber_delta, tile)
+def interleave_pair_maps(left_maps, right_maps):
+    """(2, H, W, 4): `interleave_maps` of the left (image, gx, gy) and of
+    the right CF maps, written straight into one buffer (the layout K3's
+    both-sides launch reads)."""
+    img = left_maps[0]
+    out = torch.empty((2, *img.shape, 4), dtype=torch.float32,
+                      device=img.device)
+    for o, (m, mx, my) in zip(out, (left_maps, right_maps)):
+        torch.stack([m, mx, my, m], -1, out=o)
+    return out
 
 
-def refine_2dof(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta,
-                d0, active, it0: int, it_stop: int, maps4=None, **kw):
-    """2-DoF GN over lanes (see `refine_2dof_plain`): the CUDA kernel for
-    CUDA tensors (`maps4` as there), the plain twin for CPU tensors."""
-    args = (kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta, d0,
-            active, it0, it_stop)
-    if kx.is_cuda:
-        return refine_2dof_cuda(*args, maps4=maps4, **kw)
-    if kx.device.type != "cpu":
-        raise ValueError(f"refine_2dof: unsupported device {kx.device}")
-    return refine_2dof_plain(*args, **kw)
+def phase2_lanes(done, budget: int):
+    """(S, B) mask of the lanes phase 2 runs: on each side the first
+    `budget` lanes that phase 1 left undone, in index order, which is the
+    lane set `_two_phase` compacts (a stable sort of `done`). Computed as
+    K3's phase-2 launch computes it, from the inclusive count of done
+    lanes over the flat (side, lane) order, without a sort: a lane's rank
+    among the undone lanes of its side is (i + 1) - its count of done
+    lanes."""
+    S, B = done.shape
+    cum = torch.cumsum(done.reshape(-1), 0, dtype=torch.int32).reshape(S, B)
+    base = F.pad(cum[:-1, -1:], (0, 0, 1, 0))     # done lanes of earlier sides
+    rank = torch.arange(1, B + 1, dtype=torch.int32,
+                        device=done.device) - (cum - base)
+    return ~done & (rank <= budget)
+
+
+def _two_phase_in_place(run, B: int, args, active, delta0, phase1_iters: int,
+                        phase2_budget: int, max_iter: int, chunk: int):
+    """K3's two launches in plain form: phase 1 on every lane, then phase
+    2 on the lanes of `phase2_lanes` (B2 as in `_two_phase`), from their
+    phase-1 state at their own index, written back there. Equal to
+    `_two_phase` lane for lane; `run` as there."""
+    r1, done1 = run(args, delta0, 0, phase1_iters, active)
+    done1 = done1 | ~active
+    B2 = min(B, max(chunk, phase2_budget))
+    sel = phase2_lanes(done1[None], B2)[0]
+    r2, done2 = run(args, r1.delta, phase1_iters, max_iter, sel)
+    res = RefineResult(*(torch.where(sel if b.dim() == 1 else sel[:, None],
+                                     b, a) for a, b in zip(r1, r2)))
+    return res, torch.where(sel, done2, done1)
+
+
+def k3_outputs(S: int, B: int, device):
+    """The (d, score, conf, valid, iters, done) buffers of a K3 sides
+    launch over S sides of B lanes."""
+    f32 = torch.float32
+    return (torch.empty((S, B, 2), dtype=f32, device=device),
+            torch.empty((S, B), dtype=f32, device=device),
+            torch.empty((S, B), dtype=f32, device=device),
+            torch.empty((S, B), dtype=torch.bool, device=device),
+            torch.empty((S, B), dtype=torch.int32, device=device),
+            torch.empty((S, B), dtype=torch.bool, device=device))
+
+
+def _k3_launch(kf_imgs, maps4, kpack, cpack, active, out, it0: int,
+               it_stop: int, max_iter: int, patch_size: int, tol: float,
+               huber_delta: float, tile: int, queue=None, d0=None):
+    """One launch of K3's sides entry over S = len(kf_imgs) sides; `out`
+    the (d, score, conf, valid, iters, done) buffers it writes. `queue`:
+    None for every lane from `d0` (S, B, 2), or from kf - cf if `d0` is
+    None (phase 1); or (cum_done, budget, counter) for phase 2 (in
+    place)."""
+    dev = kpack.device
+    S, B = len(kf_imgs), kpack.shape[0]
+    H, W = kf_imgs[0].shape
+    cum, budget, counter = queue if queue is not None else (None, 0, None)
+    ptr = lambda t: None if t is None else t.data_ptr()     # noqa: E731
+    with torch.cuda.device(dev):
+        err = CB.lib().refine_2dof_sides_launch(
+            kf_imgs[0].data_ptr(), kf_imgs[-1].data_ptr(), maps4.data_ptr(),
+            H, W, kpack.data_ptr(), cpack.data_ptr(), ptr(d0), S,
+            active.data_ptr(), B,
+            it0, it_stop, max_iter, patch_size, tile, TS.atlas_stride(tile),
+            tol, huber_delta, ptr(cum), budget, ptr(counter),
+            *(t.data_ptr() for t in out), CB.stream_ptr(dev))
+    CB.check(err, "refine_2dof")
+    CB.LAUNCHES["refine_2dof"] += 1
+
+
+def refine_2dof_sides_cuda(kf_imgs, maps4, kpack, cpack, active,
+                           patch_size: int = 7, max_iter: int = 20,
+                           tol: float = 1e-3, huber_delta: float = 3.0,
+                           tile: int = 48, chunk: int = 2048,
+                           phase1_iters: int = 0, phase2_budget: int = 0):
+    """K3 over S = len(kf_imgs) (1 or 2) sides of B lanes, for CUDA
+    tensors: `maps4` (S, H, W, 4) the interleaved CF maps, `kpack` and
+    `cpack` (B, 3 S) the KF edge's and the CF candidate's (x, y, theta)
+    of each side, `active` (B,) for all sides. One launch runs iterations
+    [0, max_iter) from kf - cf; with 0 < phase1_iters < max_iter, a second
+    launch runs the rest on the lanes of `phase2_lanes` in place (from one
+    torch.cumsum: no sort, gather, merge or host sync). Returns
+    (S RefineResults, done (S, B))."""
+    dev = kpack.device
+    if not kpack.is_cuda:
+        raise ValueError(f"refine_2dof_sides_cuda: needs CUDA tensors, got "
+                         f"them on {dev}")
+    S, B = len(kf_imgs), kpack.shape[0]
+    if S not in (1, 2):
+        raise ValueError(f"refine_2dof_sides_cuda: {S} sides")
+    if 2 * patch_size * patch_size > 128 or patch_size % 2 == 0:
+        raise ValueError(f"patch_size {patch_size}: the kernel takes odd "
+                         "sizes with 2*P*P <= 128")
+    f32 = torch.float32
+    H, W = kf_imgs[0].shape
+    for k, t in enumerate(kf_imgs):
+        CB.require(t, f"kf_imgs[{k}]", f32, (H, W), dev)
+    CB.require(maps4, "maps4", f32, (S, H, W, 4), dev)
+    CB.require(kpack, "kpack", f32, (B, 3 * S), dev)
+    CB.require(cpack, "cpack", f32, (B, 3 * S), dev)
+    CB.require(active, "active", torch.bool, (B,), dev)
+    out = k3_outputs(S, B, dev)
+    two = 0 < phase1_iters < max_iter
+    kw = dict(max_iter=max_iter, patch_size=patch_size, tol=tol,
+              huber_delta=huber_delta, tile=tile)
+    args = (kf_imgs, maps4, kpack, cpack, active, out)
+    _k3_launch(*args, 0, phase1_iters if two else max_iter, **kw)
+    if two:
+        B2 = min(B, max(chunk, phase2_budget))
+        cum = torch.cumsum(out[5].view(-1), 0, dtype=torch.int32)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _k3_launch(*args, phase1_iters, max_iter, **kw,
+                   queue=(cum, B2, counter))
+    return [RefineResult(*(t[k] for t in out[:5])) for k in range(S)], out[5]
+
+
+def k3_info():
+    """What the built K3 is on this card: warps per block, and for its
+    direct (phase 1) and queue (phase 2) kernels the registers a thread,
+    local (spill) bytes a thread and blocks an SM holds
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    buf = (ctypes.c_int * 7)()
+    CB.check(CB.lib().refine_2dof_info(ctypes.addressof(buf)),
+             "refine_2dof_info")
+    w = buf[0]
+    return dict(warps_per_block=w, **{
+        f"{k}_{f}": buf[1 + 3 * j + n] for j, k in enumerate(("direct",
+                                                              "queue"))
+        for n, f in enumerate(("registers", "local_bytes", "blocks_per_sm"))},
+        direct_warps_per_sm=w * buf[3], queue_warps_per_sm=w * buf[6])
 
 
 def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
@@ -396,18 +524,30 @@ def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
                       tile: int = 48, chunk: int = 2048, active=None,
                       phase1_iters: int = 0,
                       phase2_budget: int = 0) -> RefineResult:
-    """Batched 2-DoF photometric GN from d0 = kf - cf; see
-    `refine_along_epipolar_batch` for `active` / `phase1_iters`."""
+    """Batched 2-DoF photometric GN of one side from d0 = kf - cf; see
+    `refine_along_epipolar_batch` for `active` / `phase1_iters`. The
+    counterpart of the reference's function of the same name: on CUDA
+    tensors K3's sides entry with one side (`refine_2dof_sides_cuda`), on
+    CPU tensors `_two_phase` over the plain twin (equal results)."""
     B = kx.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=kx.device)
-    # the kernel's layout of the CF maps, made once for both phases
-    maps4 = interleave_maps(cf_img, cf_gx, cf_gy) if kx.is_cuda else None
+    if kx.is_cuda:
+        res, _ = refine_2dof_sides_cuda(
+            [kf_img], interleave_maps(cf_img, cf_gx, cf_gy)[None],
+            torch.stack([kx, ky, ktheta], -1),
+            torch.stack([cx, cy, ctheta], -1), active, patch_size=patch_size,
+            max_iter=max_iter, tol=tol, huber_delta=huber_delta, tile=tile,
+            chunk=chunk, phase1_iters=phase1_iters,
+            phase2_budget=phase2_budget)
+        return res[0]
+    if kx.device.type != "cpu":
+        raise ValueError(f"refine_2dof_batch: unsupported device {kx.device}")
 
     def run(args, delta0, it0, it_stop, act):
-        return refine_2dof(
+        return refine_2dof_plain(
             kf_img, cf_img, cf_gx, cf_gy, *args, delta0, act, it0, it_stop,
-            maps4=maps4, patch_size=patch_size, max_iter=max_iter, tol=tol,
+            patch_size=patch_size, max_iter=max_iter, tol=tol,
             huber_delta=huber_delta, tile=tile)
 
     args = tuple(a.contiguous() for a in (kx, ky, ktheta, cx, cy, ctheta))
@@ -416,3 +556,30 @@ def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,
         return run(args, d0, 0, max_iter, active)[0]
     return _two_phase(run, B, args, active, d0, phase1_iters, phase2_budget,
                       max_iter, chunk)
+
+
+def refine_2dof_pair_batch(kf_left, kf_right, cf_maps4, kf_pack, c_pack,
+                           active, patch_size: int = 7, max_iter: int = 20,
+                           tol: float = 1e-3, huber_delta: float = 3.0,
+                           tile: int = 48, chunk: int = 2048,
+                           phase1_iters: int = 0, phase2_budget: int = 0):
+    """Both sides of a temporal step's 2-DoF GN: (left, right)
+    RefineResults, each what `refine_2dof_batch` gives for its side.
+    `cf_maps4` is `interleave_pair_maps` of the CF frame's maps;
+    `kf_pack` and `c_pack` (B, 6) the KF edges' and the CF candidates'
+    (x, y, theta) of the left then the right side; `active` (B,) both
+    sides. On CUDA tensors one K3 launch a phase covers both sides; on
+    CPU tensors each side goes through `refine_2dof_batch`."""
+    kw = dict(patch_size=patch_size, max_iter=max_iter, tol=tol,
+              huber_delta=huber_delta, tile=tile, chunk=chunk,
+              phase1_iters=phase1_iters, phase2_budget=phase2_budget)
+    if kf_pack.is_cuda:
+        res, _ = refine_2dof_sides_cuda(
+            [kf_left, kf_right], cf_maps4, kf_pack.contiguous(),
+            c_pack.contiguous(), active, **kw)
+        return tuple(res)
+    return tuple(refine_2dof_batch(
+        kf, cf_maps4[s, ..., 0], cf_maps4[s, ..., 1], cf_maps4[s, ..., 2],
+        *kf_pack[:, 3 * s:3 * s + 3].unbind(-1),
+        *c_pack[:, 3 * s:3 * s + 3].unbind(-1), active=active, **kw)
+        for s, kf in enumerate((kf_left, kf_right)))

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1, K2, K3) against their plain-PyTorch
-twins, on the card, and the paths through them (the pipeline, BA, the
+"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch)
+against their plain-PyTorch twins, on the card, and the paths through them (the pipeline, BA, the
 CLI, the NCCL pair step and its production memory). Every test here needs
 a CUDA device
 (marker `gpu`) and skips without one. The file imports no JAX, so it also
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as C
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
@@ -189,8 +190,8 @@ def _2dof_lanes(rng, B, H, W):
 
 
 def _assert_same(k, p, act):
-    """Kernel and twin (RefineResult, done) bit-equal on the `act` lanes;
-    NaN where the other is NaN (a lane whose 2x2 system went singular)."""
+    """Kernel and twin (RefineResult, done) bit-equal on the `act` lanes
+    (a NaN equals a NaN)."""
     for a, b in zip((*k[0], k[1]), (*p[0], p[1])):
         torch.testing.assert_close(a[act], b[act], rtol=0, atol=0,
                                    equal_nan=True)
@@ -221,8 +222,7 @@ def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
     d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
     for tile in (32, 48):
         for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
-            k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, it0, it_stop,
-                                    tile=tile)
+            k = C.k3_side(*imgs, *lanes, d0, act, it0, it_stop, tile=tile)
             p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
                                      tile=tile)
             _assert_same(k, p, act)
@@ -245,8 +245,8 @@ def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
 @pytest.mark.parametrize("tile", [32, 48])
 def test_2dof_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
     """K3 against its twin, bit for bit, at 301 lanes on candidates clamped
-    at every border, with the interleaved maps made by the launch and
-    passed in."""
+    at every border, from an explicit d0 over iterations [0, 2), [2, 20)
+    and [0, 20)."""
     left, right, _ = frame
     lf = torch.from_numpy(left.astype(np.float32))
     rf = torch.from_numpy(right.astype(np.float32))
@@ -260,21 +260,21 @@ def test_2dof_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
     d0 = d0.to(dev)
     act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
     maps4 = GN.interleave_maps(*imgs[1:])
-    for m4 in (None, maps4):
-        for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
-            k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, it0, it_stop,
-                                    patch_size=patch_size, tile=tile,
-                                    maps4=m4)
-            p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
-                                     patch_size=patch_size, tile=tile)
-            torch.cuda.synchronize()
-            _assert_same(k, p, act)
+    for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
+        k = C.k3_side(*imgs, *lanes, d0, act, it0, it_stop,
+                      patch_size=patch_size, tile=tile, maps4=maps4)
+        p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
+                                 patch_size=patch_size, tile=tile)
+        torch.cuda.synchronize()
+        _assert_same(k, p, act)
 
 
 def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
     """Flat CF maps with equal large gradients make every lane's 2x2
-    system singular: kernel and twin both carry the NaN step to max_iter
-    (the tile clamp keeps a NaN, as torch.clamp does)."""
+    system singular and its first step NaN: kernel and twin both take no
+    such step and stop the lane there (done after one iteration, score
+    1e6, valid=False, d = d0), bit for bit; one side from d0, and both
+    sides through the sides entry's two phases."""
     kf = torch.from_numpy(frame[0].astype(np.float32))
     H, W = kf.shape
     rng = np.random.default_rng(9)
@@ -284,10 +284,87 @@ def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
         torch.full_like(kf, 1000.0))]
     lanes, d0 = [a.to(dev) for a in lanes], d0.to(dev)
     act = torch.ones(64, dtype=torch.bool, device=dev)
-    k = GN.refine_2dof_cuda(*imgs, *lanes, d0, act, 0, 20)
+    k = C.k3_side(*imgs, *lanes, d0, act, 0, 20)
     p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, 0, 20)
-    assert bool(k[0].delta.isnan().all()) and bool((k[0].iters == 20).all())
+    assert bool(torch.isfinite(k[0].delta).all())
+    assert bool((k[0].iters == 1).all()) and bool(k[1].all())
+    assert not bool(k[0].valid.any()) and bool((k[0].score == 1e6).all())
+    torch.testing.assert_close(k[0].delta, d0, rtol=0, atol=0)
     _assert_same(k, p, act)
+    maps4 = GN.interleave_maps(*imgs[1:])[None].repeat(2, 1, 1, 1)
+    pack = lambda a: torch.stack(a * 2, -1).contiguous()     # noqa: E731
+    res, done = GN.refine_2dof_sides_cuda(
+        [imgs[0], imgs[0]], maps4, pack(lanes[:3]), pack(lanes[3:]), act,
+        tile=32, chunk=8, phase1_iters=2, phase2_budget=16)
+    ref = GN.refine_2dof_plain(*imgs, *lanes, torch.stack(
+        [lanes[0] - lanes[3], lanes[1] - lanes[4]], -1), act, 0, 20, tile=32)
+    for r, dn in zip(res, done):
+        _assert_same((r, dn), ref, act)
+
+
+def _pair_lanes(frame, dev, seed, B):
+    """Both sides of a temporal step on the 120x160 frame: side 0 KF =
+    left, CF = right; side 1 KF = right, CF = left; each with the border
+    lanes of `_2dof_lanes` and about 5% inactive lanes (shared by the
+    sides, as the temporal matcher's mask is). Returns the per-side plain
+    args, the sides entry's args and `active`."""
+    left, right, _ = frame
+    lf = torch.from_numpy(left.astype(np.float32))
+    rf = torch.from_numpy(right.astype(np.float32))
+    H, W = lf.shape
+    rng = np.random.default_rng(seed)
+    sides = []
+    for kf, cf in ((lf, rf), (rf, lf)):
+        gx, gy = IMG.sobel_gradients(cf)
+        lanes, _ = _2dof_lanes(rng, B, H, W)
+        sides.append([a.to(dev).contiguous() for a in (kf, cf, gx, gy,
+                                                       *lanes)])
+    act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
+    maps4 = GN.interleave_pair_maps(*(tuple(sd[1:4]) for sd in sides))
+    kpack = torch.stack([sd[k] for sd in sides for k in (4, 5, 6)], -1)
+    cpack = torch.stack([sd[k] for sd in sides for k in (7, 8, 9)], -1)
+    return sides, ([sides[0][0], sides[1][0]], maps4, kpack, cpack), act
+
+
+@pytest.mark.parametrize("tile,patch_size", [(32, 7), (48, 5)])
+def test_2dof_sides_launch_matches_twin_bit_for_bit(dev, frame, tile,
+                                                    patch_size):
+    """K3's both-sides launch against its twin, bit for bit, at 301 lanes
+    a side mixing border, interior and inactive lanes: as one
+    20-iteration launch (against the twin from kf - cf), and as two
+    launches with phase 2's lanes picked on the device, at budgets below
+    and above the lanes phase 1 leaves undone (against the plain
+    in-place form and against `_two_phase` over one-side launches)."""
+    sides, sargs, act = _pair_lanes(frame, dev, 200 + tile, 301)
+    B = act.shape[0]
+    kw = dict(patch_size=patch_size, max_iter=20, tol=1e-3, huber_delta=3.0,
+              tile=tile)
+    CB.reset_launch_counts()
+    one, done = GN.refine_2dof_sides_cuda(*sargs, act, **kw)
+    assert CB.LAUNCHES["refine_2dof"] == 1
+    for sd, r, dn in zip(sides, one, done):
+        d0 = torch.stack([sd[4] - sd[7], sd[5] - sd[8]], -1)
+        p = GN.refine_2dof_plain(*sd, d0, act, 0, 20, **kw)
+        _assert_same((r, dn), p, act)
+    for budget in (16, 4096):
+        ph = dict(chunk=8, phase1_iters=2, phase2_budget=budget)
+        CB.reset_launch_counts()
+        two, done = GN.refine_2dof_sides_cuda(*sargs, act, **kw, **ph)
+        assert CB.LAUNCHES["refine_2dof"] == 2
+        for sd, r, dn in zip(sides, two, done):
+            d0 = torch.stack([sd[4] - sd[7], sd[5] - sd[8]], -1)
+
+            def run(fn):
+                return lambda a, d, it0, it_stop, ac: fn(
+                    *sd[:4], *a, d, ac, it0, it_stop, **kw)
+            lanes = tuple(sd[4:])
+            ph2 = dict(phase1_iters=2, phase2_budget=budget, max_iter=20,
+                       chunk=8)
+            plain, pdone = GN._two_phase_in_place(
+                run(GN.refine_2dof_plain), B, lanes, act, d0, **ph2)
+            _assert_same((r, dn), (plain, pdone), act)
+            old = GN._two_phase(run(C.k3_side), B, lanes, act, d0, **ph2)
+            _assert_same((r, dn), (old, dn), act)
 
 
 def test_wrappers_validate_operands(dev):
@@ -310,20 +387,22 @@ def test_wrappers_validate_operands(dev):
         GN.refine_along_epipolar_cuda(*imgs, *lanes, epi, lanes[0], act, 0,
                                       20, maps4=torch.zeros(40, 50, 3,
                                                             device=dev))
-    # K3: six lanes and a (B, 2) d0
-    lanes6 = lanes + [lanes[0]]
-    with pytest.raises(ValueError):     # d0 must be (B, 2)
-        GN.refine_2dof_cuda(*imgs, *lanes6, lanes[0], act, 0, 20)
+    # K3's sides entry: (B, 3 S) packs, (S, H, W, 4) maps, 1 or 2 sides
+    kfs, m4 = imgs[:2], torch.zeros(2, 40, 50, 4, device=dev)
+    pack = torch.zeros(8, 6, device=dev)
     with pytest.raises(ValueError):
-        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act.float(), 0, 20)
+        GN.refine_2dof_sides_cuda(kfs, m4, pack[:, :3], pack, act)
     with pytest.raises(ValueError):
-        GN.refine_2dof_cuda(*imgs[:1], imgs[1][:, :40], *imgs[2:], *lanes6,
-                            epi, act, 0, 20)
+        GN.refine_2dof_sides_cuda(kfs, m4, pack, pack, act.float())
     with pytest.raises(ValueError):
-        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act, 0, 20, patch_size=8)
+        GN.refine_2dof_sides_cuda([kfs[0], kfs[1][:, :40]], m4, pack, pack,
+                                  act)
     with pytest.raises(ValueError):
-        GN.refine_2dof_cuda(*imgs, *lanes6, epi, act, 0, 20,
-                            maps4=torch.zeros(40, 50, 3, device=dev))
+        GN.refine_2dof_sides_cuda(kfs, m4, pack, pack, act, patch_size=8)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_sides_cuda(kfs, m4[..., :3], pack, pack, act)
+    with pytest.raises(ValueError):
+        GN.refine_2dof_sides_cuda(kfs * 2, m4, pack, pack, act)
 
 
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
@@ -339,8 +418,9 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert all(v == 0 for v in n_cpu.values())
     assert n_gpu["toed_gradient_field"] == 3
     assert n_gpu["refine_along_epipolar"] >= 3
-    # K3: two phases for each side of the two temporal steps
-    assert n_gpu["refine_2dof"] == 8
+    # K3: two phases, each one launch for both sides, in each of the two
+    # temporal steps
+    assert n_gpu["refine_2dof"] == 4
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()

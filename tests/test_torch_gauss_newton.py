@@ -7,7 +7,9 @@ is exact to ~0.003 gray):
     32, 2 phase-1 iterations, weight split) with a phase-2 budget small
     enough that the over-budget path runs;
   - the same vs the Pallas kernel in interpret mode (tile 48, one phase);
-  - 2-DoF GN (plain twin of kernel K3) vs refine_2dof_batch.
+  - 2-DoF GN (plain twin of kernel K3) vs refine_2dof_batch, one side
+    and both sides through the pair entry; K3's device-side phase-2
+    selection in plain form vs the two-phase loop; singular lanes.
 
 Tolerances (cf. tests/test_toed_pallas.py): delta atol 2e-3, score atol
 1e-2, `valid` agreement >= 0.98 - f32 sums in another order and the
@@ -159,22 +161,141 @@ def test_2dof_matches_jax(problem, budget):
 def test_2dof_singular_lanes_go_nan_without_an_index_error(problem):
     """CF maps flat, with equal and large constant gradients: every lane's
     2x2 system rounds to det = 0 (reg is lost against ~1e6) and its step
-    to NaN. The twin carries the NaN through the tile-clamped sampling to
-    max_iter (a NaN position reads index 0, as on the card) instead of
-    indexing with an undefined integer."""
+    goes NaN in the first iteration. The twin
+    (as K3) takes no such step: each active lane stops there, done after
+    one iteration, without a score (1e6, valid=False) and with d = d0 =
+    kf - cf; no NaN reaches the tile-clamped sampling, so no position is
+    indexed with an undefined integer. The reference's own function on the
+    same input gives no NaN either (its f32 sums round det away from 0;
+    most of its lanes stop after one iteration, invalid)."""
     p = problem
     kf = torch.from_numpy(p["imgs"][0])
-    flat = torch.full_like(kf, 100.0)
     g = torch.full_like(kf, 1000.0)
-    lanes = _2dof_args(p)[4:]
+    args = [kf, torch.full_like(kf, 100.0), g, g, *_2dof_args(p)[4:]]
     act = torch.from_numpy(p["act"])
-    out = GN.refine_2dof_batch(kf, flat, g, g, *lanes, active=act, tile=32)
-    assert out.delta[act].isnan().all()
-    assert (out.iters[act] == 20).all()
-    assert not out.delta[~act].isnan().any()
+    out = GN.refine_2dof_batch(*args, active=act, tile=32)
+    assert torch.isfinite(out.delta).all()
+    assert (out.iters[act] == 1).all()
+    assert not out.valid.any()
+    assert (out.score[act] == 1e6).all() and (out.confidence[act] == 0).all()
+    d0 = torch.stack([args[4] - args[7], args[5] - args[8]], -1)
+    torch.testing.assert_close(out.delta, d0, rtol=0, atol=0)
+    # the same lanes from iteration 2 on: done at once, iters 3
+    res, done = GN.refine_2dof_plain(*args, d0, act, 2, 20, tile=32)
+    assert done.all() and (res.iters[act] == 3).all()
+    ref = JGN.refine_2dof_batch(*(jnp.asarray(a.numpy()) for a in args),
+                                active=jnp.asarray(p["act"]), tile=32)
+    assert np.isfinite(np.asarray(ref.delta)).all()
 
 
-@pytest.mark.parametrize("refiner", ["epipolar", "2dof"])
+@pytest.mark.parametrize("budget", [16, 16384])
+def test_2dof_guard_leaves_finite_steps_bit_identical(problem, monkeypatch,
+                                                      budget):
+    """On `problem`'s lanes every step is finite, so the singular-lane
+    guard changes no bit of the twin's result: against the same run with
+    the guard switched off (every step taken for finite), at production
+    settings."""
+    p = problem
+    act = torch.from_numpy(p["act"])
+    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32,
+              chunk=8, phase1_iters=2, phase2_budget=budget, active=act)
+    guarded = GN.refine_2dof_batch(*_2dof_args(p), **kw)
+    assert torch.isfinite(guarded.delta).all()
+    monkeypatch.setattr(torch, "isfinite",
+                        lambda t: torch.ones(t.shape, dtype=torch.bool))
+    unguarded = GN.refine_2dof_batch(*_2dof_args(p), **kw)
+    for a, b in zip(guarded, unguarded):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _pair(p):
+    """Both sides of a temporal step on `problem`: the left side as
+    `_2dof_args` (KF = left, CF = right); the right side the other way
+    round, its KF edges the GT matches in the right image and its
+    candidates the left edges with up to 1.5 px of noise. Returns the JAX
+    args of each side and the pair entry's (kf_left, kf_right, maps4,
+    kf_pack, c_pack)."""
+    left, right, gx, gy = p["imgs"]
+    lgx, lgy = (np.asarray(a) for a in JIMG.sobel_gradients(jnp.asarray(left)))
+    rng = np.random.default_rng(11)
+    xt = (p["rx"] + rng.uniform(-0.2, 0.2, p["rx"].size)).astype(np.float32)
+    lxn = (p["lx"] + rng.uniform(-1.5, 1.5, p["lx"].size)).astype(np.float32)
+    sides = [(left, right, gx, gy, p["lx"], p["ly"], p["lt"], p["rx"],
+              p["ry"], p["lt"]),
+             (right, left, lgx, lgy, xt, p["ly"], p["lt"], lxn, p["ly"],
+              p["lt"])]
+    t = lambda a: torch.from_numpy(np.array(a))          # noqa: E731
+    maps4 = GN.interleave_pair_maps(*((t(a[1]), t(a[2]), t(a[3]))
+                                      for a in sides))
+    kpack = torch.stack([t(a[k]) for a in sides for k in (4, 5, 6)], -1)
+    cpack = torch.stack([t(a[k]) for a in sides for k in (7, 8, 9)], -1)
+    return sides, (t(left), t(right), maps4, kpack, cpack)
+
+
+@pytest.mark.parametrize("budget", [16, 16384])
+def test_2dof_pair_batch_equals_two_sides_and_jax(problem, budget):
+    """The both-sides entry on CPU tensors gives, bit for bit, what two
+    `refine_2dof_batch` calls give, and each side agrees with the
+    reference's `refine_2dof_batch` at `test_2dof_matches_jax`'s
+    tolerances."""
+    p = problem
+    sides, pair = _pair(p)
+    act = p["act"]
+    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32,
+              chunk=8, phase1_iters=2, phase2_budget=budget)
+    got = GN.refine_2dof_pair_batch(*pair, torch.from_numpy(act), **kw)
+    assert len(got) == 2
+    for side, out in zip(sides, got):
+        one = GN.refine_2dof_batch(*(torch.from_numpy(np.array(a))
+                                     for a in side),
+                                   active=torch.from_numpy(act), **kw)
+        for a, b in zip(out, one):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        ref = JGN.refine_2dof_batch(*(jnp.asarray(a) for a in side),
+                                    active=jnp.asarray(act),
+                                    weight_split=True, phase1_chunk=64, **kw)
+        agree = (out.valid.numpy() == np.asarray(ref.valid))[act].mean()
+        assert agree >= 0.98, agree
+        settled = (act & (out.iters.numpy() < kw["max_iter"])
+                   & (np.asarray(ref.iters) < kw["max_iter"]))
+        assert settled.sum() > 0.5 * act.sum()
+        _assert_close(out, ref, settled)
+
+
+@pytest.mark.parametrize("budget", [64, 4096])
+def test_2dof_device_selection_equals_two_phase(problem, budget):
+    """K3's phase-2 selection in plain form (one cumsum, phase 2 in place
+    at each lane's own index) equals `_two_phase`'s stable sort, gather
+    and merge, bit for bit: with budget 64 fewer lanes than phase 1 leaves
+    undone fit, with 4096 all of them do."""
+    p = problem
+    args = _2dof_args(p)
+    act = torch.from_numpy(p["act"])
+    B = act.shape[0]
+    lanes = tuple(args[4:])
+    d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
+    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32)
+
+    def run(a, delta0, it0, it_stop, active):
+        return GN.refine_2dof_plain(*args[:4], *a, delta0, active, it0,
+                                    it_stop, **kw)
+
+    phases = dict(phase1_iters=2, phase2_budget=budget, max_iter=20, chunk=8)
+    _, done1 = run(lanes, d0, 0, 2, act)
+    undone = int((~done1).sum())
+    assert (undone > budget) if budget == 64 else (undone < B)
+    in_place, _ = GN._two_phase_in_place(run, B, lanes, act, d0, **phases)
+    ref = GN._two_phase(run, B, lanes, act, d0, **phases)
+    for a, b in zip(in_place, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # the lanes it picks: the first B2 undone ones of each side
+    sel = GN.phase2_lanes(torch.stack([done1 | ~act, ~act]), min(B, budget))
+    first = torch.nonzero(~(done1 | ~act)).flatten()[:min(B, budget)]
+    assert torch.equal(torch.nonzero(sel[0]).flatten(), first)
+    assert torch.equal(sel[1], act[:] & (torch.cumsum(act, 0) <= budget))
+
+
+@pytest.mark.parametrize("refiner", ["epipolar", "2dof", "pair"])
 def test_cpu_tensors_take_the_twin_and_kernel_wrapper_refuses_them(
         problem, monkeypatch, refiner):
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
@@ -185,17 +306,26 @@ def test_cpu_tensors_take_the_twin_and_kernel_wrapper_refuses_them(
     monkeypatch.setattr(CB, "lib", no_build)
     act = torch.from_numpy(problem["act"])
     B = act.shape[0]
+    before = dict(CB.LAUNCHES)
+    kw = dict(tile=32, phase1_iters=2, phase2_budget=64)
+    if refiner == "pair":
+        _, pair = _pair(problem)
+        GN.refine_2dof_pair_batch(*pair, act, **kw)
+        assert CB.LAUNCHES == before
+        with pytest.raises(ValueError):
+            GN.refine_2dof_sides_cuda(list(pair[:2]), *pair[2:], act)
+        return
     if refiner == "epipolar":
         args = _port_args(problem)
-        batch, kernel, delta0 = (GN.refine_along_epipolar_batch,
-                                 GN.refine_along_epipolar_cuda,
-                                 torch.zeros(B))
-    else:
-        args = _2dof_args(problem)
-        batch, kernel, delta0 = (GN.refine_2dof_batch, GN.refine_2dof_cuda,
-                                 torch.zeros(B, 2))
-    before = dict(CB.LAUNCHES)
-    batch(*args, active=act, tile=32, phase1_iters=2, phase2_budget=64)
+        GN.refine_along_epipolar_batch(*args, active=act, **kw)
+        assert CB.LAUNCHES == before
+        with pytest.raises(ValueError):
+            GN.refine_along_epipolar_cuda(*args, torch.zeros(B), act, 0, 20)
+        return
+    args = _2dof_args(problem)
+    GN.refine_2dof_batch(*args, active=act, **kw)
     assert CB.LAUNCHES == before
-    with pytest.raises(ValueError):
-        kernel(*args, delta0, act, 0, 20)
+    with pytest.raises(ValueError):     # K3's sides entry with one side
+        GN.refine_2dof_sides_cuda(
+            [args[0]], GN.interleave_maps(*args[1:4])[None],
+            torch.stack(args[4:7], -1), torch.stack(args[7:10], -1), act)

@@ -18,7 +18,8 @@ Phases (each passes or exits non-zero):
   6. the production frame: VOPipeline(VOConfig(), every_frame) over the 3
      frames, with launch counts, workload and pose-error checks, the
      steps timed by `StageTimer`; then the prediction-mode temporal step
-     of frame 2 again, 3 times, each stage of it timed (synchronised);
+     of frame 2 again, 3 times, each stage of it timed (synchronised),
+     and frame 2's stereo step so;
  6b. K3 (2-DoF KF -> CF GN) vs its plain twin, bit for bit, on the
      operands frame 2's temporal step gave `refine_2dof_pair_batch`,
      both sides in one launch: as one 20-iteration launch and as the
@@ -28,6 +29,10 @@ Phases (each passes or exits non-zero):
      the pair interleave timed beside its bound (the two launches and the
      glue between them apart), the twin and the watch of the lanes'
      deltas timed; registers, spills and warps an SM;
+ 6c. K4 (edge clustering) vs its plain twin run on the card, bit for bit,
+     on the operands frame 2's stereo and temporal steps gave
+     `cluster_edges`; each call timed beside its bound and the twin
+     (phase 2 prints its registers and spills);
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -55,7 +60,8 @@ Phases (each passes or exits non-zero):
      `make_corridor_sequence` at 376x1241: no collapsed frame, a pose on
      every frame, ATE under 5% of the GT path;
 On every path (6-10) the active K3 lanes are checked for a finite
-delta, and the lanes ended by the singular-lane guard are counted.
+delta, and the lanes ended by the singular-lane guard are counted; K4 is
+launched once per stereo step and once per temporal step.
 Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
@@ -138,6 +144,24 @@ K3_ITER_FLOPS = 28
 K3_LANE_IN_BYTES = 6 * 4 + 2 * 4 + 1    # kx ky kt cx cy ct, d0, active
 K3_LANE_OUT_BYTES = 4 * 4 + 1 + 4 + 1   # d score conf, valid, iters, done
 
+# K4 (csrc/cluster_edges.cu), counted from the O(N C^2) form it computes
+# (compares, selects and the integer label steps not counted): per slot
+# pair the adjacency distance (2 sub, 2 mul, add, sqrt), and 1 sub more
+# with the orientation gate; with the cap, per pair the centroid sums (2
+# mul, 2 add) and per slot 2 divisions and its distance to the centroid
+# (6); for the representative, per pair the centroid sums (4), the
+# distance (6), the mean-shift sum (2), the weight (sub, 2 mul for z and
+# z^2, mul by -0.5, exp, mul by the membership: 6), its sum (1) and the
+# three weighted sums (6), and per slot 6 divisions.
+K4_PAIR_FLOPS = 6
+K4_ORIENT_PAIR_FLOPS = 1
+K4_CAP_PAIR_FLOPS = 4
+K4_CAP_SLOT_FLOPS = 8
+K4_REP_PAIR_FLOPS = 25
+K4_REP_SLOT_FLOPS = 6
+K4_SLOT_IN_BYTES = 3 * 4 + 1            # x y theta, mask
+K4_SLOT_OUT_BYTES = 3 * 4 + 1 + 8       # x y theta, mask, int64 label
+
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """Least time in ms for `flops` and `nbytes` on the card, and what
@@ -177,6 +201,18 @@ def k3_work(iters_run, active, patch_size, H, W):
              + int(iters_run.sum()) * (n * K3_SAMPLE_FLOPS + K3_ITER_FLOPS))
     nbytes = 4 * H * W * 4 + B * (K3_LANE_IN_BYTES + K3_LANE_OUT_BYTES)
     return flops, nbytes
+
+
+def k4_work(N, C, by_orientation, max_cluster_size):
+    """(flops, bytes) of one K4 launch over (N, C) slots; the (N, C, C)
+    membership matrix is one byte an entry."""
+    pairs, slots = N * C * C, N * C
+    cap = bool(max_cluster_size) and max_cluster_size < C
+    flops = (pairs * (K4_PAIR_FLOPS + K4_REP_PAIR_FLOPS
+                      + K4_ORIENT_PAIR_FLOPS * bool(by_orientation)
+                      + K4_CAP_PAIR_FLOPS * cap)
+             + slots * (K4_REP_SLOT_FLOPS + K4_CAP_SLOT_FLOPS * cap))
+    return flops, slots * (K4_SLOT_IN_BYTES + K4_SLOT_OUT_BYTES) + pairs
 
 
 def fail(msg):
@@ -227,6 +263,26 @@ def same_lanes(x, y, mask, what):
                           f"{int(mask.sum())} active lanes")
 
 
+def same_cluster(a, b, what):
+    """Fail unless two ClusterResults are equal: label, mask and members
+    equal, x / y / theta bit-equal (a NaN equals a NaN). Returns the
+    largest |a - b| over the finite float outputs."""
+    for nm in ("label", "mask", "members"):
+        n_bad = int((getattr(a, nm) != getattr(b, nm)).sum())
+        check(n_bad == 0, f"{what}: {nm} differs at {n_bad} entries")
+    err = 0.0
+    for nm in ("x", "y", "theta"):
+        u, v = getattr(a, nm), getattr(b, nm)
+        ne = ((u.view(torch.int32) != v.view(torch.int32))
+              & ~(u.isnan() & v.isnan()))
+        n_bad = int(ne.sum())
+        check(n_bad == 0, f"{what}: {nm} not bit-equal at {n_bad} slots")
+        fin = u.isfinite() & v.isfinite()
+        if bool(fin.any()):
+            err = max(err, float((u - v).abs()[fin].max()))
+    return err
+
+
 def recorder(fn, imgs, gn_kw, calls, **extra):
     """A `_two_phase` run that launches `fn` on the maps `imgs` and keeps
     each launch's operands in `calls`."""
@@ -254,33 +310,74 @@ def gn_forms(launch, forms, work, P, H, W):
     return rows
 
 
-def temporal_split(step, args, reps=3):
-    """Per-stage ms of one temporal step, mean of `reps` runs, each stage
-    timed with the card synchronised before and after it."""
-    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
-    from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
-    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
-    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+def step_split(stages, label, step, args, reps=3):
+    """Per-stage ms of `step(*args)` (`label`), mean of `reps` runs; each
+    stage (module, attribute, label) timed with the card synchronised
+    before and after it, its calls in a step summed."""
     from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
 
-    stages = ((TM, "match_temporal", "match_temporal"),
-              (GN, "interleave_pair_maps", "interleave_pair_maps"),
-              (GN, "refine_2dof_pair_batch", "refine_2dof_pair_batch"),
-              (CL, "cluster_edges", "cluster_edges"),
-              (TM, "_row_chunked", "dense NCC + descriptor gates"),
-              (MT, "lift_quads", "lift_quads"),
-              (MT, "estimate_pose", "estimate_pose"))
     timer = TIM.StageTimer()
     saved = [(m, n, getattr(m, n)) for m, n, _ in stages]
     try:
-        for (m, n, fn), (_, _, label) in zip(saved, stages):
-            setattr(m, n, functools.partial(timer.timed, label, fn))
+        for (m, n, fn), (_, _, name) in zip(saved, stages):
+            setattr(m, n, functools.partial(timer.timed, name, fn))
         for _ in range(reps):
-            timer.timed("temporal step", step, *args)
+            timer.timed(label, step, *args)
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
     return {n: sum(ts) / reps * 1e3 for n, ts in timer.times.items()}
+
+
+def temporal_split(step, args, reps=3):
+    """Per-stage ms of one temporal step (`step_split`)."""
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    split = step_split(
+        ((TM, "match_temporal", "match_temporal"),
+         (GN, "interleave_pair_maps", "interleave_pair_maps"),
+         (GN, "refine_2dof_pair_batch", "refine_2dof_pair_batch"),
+         (CL, "cluster_edges", "cluster_edges"),
+         (TM, "_row_chunked", "dense NCC + descriptor gates"),
+         (MT, "lift_quads", "lift_quads"),
+         (MT, "estimate_pose", "estimate_pose")),
+        "temporal step", step, args, reps)
+    split["rest of match_temporal"] = split["match_temporal"] - sum(
+        split[nm] for nm in ("interleave_pair_maps", "refine_2dof_pair_batch",
+                             "cluster_edges", "dense NCC + descriptor gates"))
+    return split
+
+
+def stereo_split(step, args, reps=3):
+    """Per-stage ms of one stereo step (`step_split`): edge detection,
+    descriptors, the dense gates, patches, K2's two phases
+    (`refine_along_epipolar_batch`) and the clustering."""
+    from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+    from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import patches as P
+    from edge_based_visual_odometry_tpu_torch.ops import toed as T
+
+    inner = ("edge_descriptors", "dense NCC + descriptor gates",
+             "edge_patches", "refine_along_epipolar_batch", "cluster_edges")
+    split = step_split(
+        ((T, "detect_edges", "detect_edges"),
+         (SM, "match_stereo", "match_stereo"),
+         (DESC, "edge_descriptors", inner[0]),
+         (SM, "_row_chunked", inner[1]),
+         (P, "edge_patches", inner[2]),
+         (GN, "refine_along_epipolar_batch", inner[3]),
+         (CL, "cluster_edges", inner[4])),
+        "stereo step", step, args, reps)
+    split["rest of match_stereo"] = split["match_stereo"] - sum(
+        split[nm] for nm in inner)
+    split["rest of the step"] = (split["stereo step"] - split["match_stereo"]
+                                 - split["detect_edges"])
+    return split
 
 
 def u8(a):
@@ -626,6 +723,52 @@ def phase_k3(k3_ops, card, H, W):
             "pct_of_bound_no_fma") if k in r} for f, r in k3.items()})
 
 
+def phase_k4(cl_ops, card):
+    """Phase 6c: K4 against its twin run on the card, bit for bit, on the
+    operands frame 2's stereo and temporal steps gave `cluster_edges`
+    (`cl_ops`: kind -> (args, kwargs)); each call timed with CUDA events
+    beside its bound, and the twin timed. Returns the kernel's JSON entry,
+    its times and bound those of a frame's two calls."""
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+
+    calls, err = {}, 0.0
+    for kind in ("stereo", "temporal"):
+        check(kind in cl_ops, f"K4: no {kind} call of cluster_edges recorded")
+        a, kw = cl_ops[kind]
+        N, C = a[0].shape
+        k = CL.cluster_edges_cuda(*a, **kw)
+        p = CL.cluster_edges_plain(*a, **kw)
+        torch.cuda.synchronize()
+        err = max(err, same_cluster(k, p, f"K4 {kind} call ({N} x {C})"))
+        row = with_bound(cuda_ms(lambda: CL.cluster_edges_cuda(*a, **kw), 50),
+                         *k4_work(N, C, kw["by_orientation"],
+                                  kw["max_cluster_size"]))
+        row.update(plain_ms=cuda_ms(lambda: CL.cluster_edges_plain(*a, **kw),
+                                    3),
+                   rows=N, slots=C, active=int(a[3].sum()),
+                   clusters=int(k.mask.sum()))
+        calls[kind] = row
+        print(f"K4 cluster_edges, {kind} call ({N} x {C}, "
+              f"{row['active']} active slots, {row['clusters']} clusters, "
+              f"orientation gate {kw['by_orientation']}, cap "
+              f"{kw['max_cluster_size']}): bit-equal to its twin on the card "
+              f"(label, mask, members, x, y, theta); kernel {row['ms']:.4f} "
+              f"ms, twin {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}: "
+              f"{row['flops']} flop, {row['bytes']} B), "
+              f"{row['pct_of_bound']:.1f}% of it [{card}]")
+    frame = with_bound(sum(r["ms"] for r in calls.values()),
+                       sum(r["flops"] for r in calls.values()),
+                       sum(r["bytes"] for r in calls.values()))
+    return dict(
+        name="cluster_edges", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/cluster_edges.cu",
+        replaces="edge_based_visual_odometry_tpu/ops/clustering.py:42",
+        max_abs_err=err, library_ms=None,
+        plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        **frame)
+
+
 def phase_sequence(seq, images, card, work_dir):
     """Phase 7. Returns the kernel launches of the main run."""
     from edge_based_visual_odometry_tpu_torch import cli as CLI
@@ -674,7 +817,8 @@ def phase_sequence(seq, images, card, work_dir):
         k = pf["k"]
         check(pf["launches"]["toed_gradient_field"] >= 1
               and pf["launches"]["refine_along_epipolar"] >= 1
-              and pf["launches"]["refine_2dof"] == (2 if k else 0),
+              and pf["launches"]["refine_2dof"] == (2 if k else 0)
+              and pf["launches"]["cluster_edges"] == (2 if k else 1),
               f"sequence frame {k}: kernel launches {pf['launches']}")
         check(pf["mates"] >= 21000,
               f"sequence frame {k}: mates {pf['mates']} < 21000")
@@ -1063,6 +1207,7 @@ def main():
     from edge_based_visual_odometry_tpu_torch.config import VOConfig
     from edge_based_visual_odometry_tpu_torch.io import synthetic as S
     from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
     from edge_based_visual_odometry_tpu_torch.ops import toed
@@ -1259,10 +1404,19 @@ def main():
         finally:
             GN.refine_2dof_pair_batch = batch
 
+    # the operands of the last stereo and temporal calls of cluster_edges
+    # (frame 2's) for phase 6c
+    cluster, cl_ops = CL.cluster_edges, {}
+
+    def recording_cluster(*a, **kw):
+        cl_ops["temporal" if kw["by_orientation"] else "stereo"] = (a, kw)
+        return cluster(*a, **kw)
+
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
+    stereo = pipe._stereo_step
     pipe._stereo_step = functools.partial(timer.timed, "stereo step",
-                                          pipe._stereo_step)
+                                          stereo)
     pipe._temporal_step = functools.partial(timer.timed, "temporal step",
                                             recording_predict)
     pipe._temporal_step_boot = functools.partial(
@@ -1270,17 +1424,22 @@ def main():
     torch.cuda.synchronize()
     CB.reset_launch_counts()
     per_frame = []
-    with K3Watch() as watch:
-        for k, (l, r) in enumerate(frames):
-            before = dict(CB.LAUNCHES)
-            t = time.perf_counter()
-            fr, tr = pipe.run_frame(l, r)
-            torch.cuda.synchronize()
-            frame_ms = (time.perf_counter() - t) * 1e3
-            step_ms = {nm.split()[0]: ts[-1] * 1e3
-                       for nm, ts in timer.times.items()}
-            per_frame.append((fr, tr, {n: CB.LAUNCHES[n] - before[n]
-                                       for n in before}, step_ms, frame_ms))
+    CL.cluster_edges = recording_cluster
+    try:
+        with K3Watch() as watch:
+            for k, (l, r) in enumerate(frames):
+                before = dict(CB.LAUNCHES)
+                t = time.perf_counter()
+                fr, tr = pipe.run_frame(l, r)
+                torch.cuda.synchronize()
+                frame_ms = (time.perf_counter() - t) * 1e3
+                step_ms = {nm.split()[0]: ts[-1] * 1e3
+                           for nm, ts in timer.times.items()}
+                per_frame.append((fr, tr, {n: CB.LAUNCHES[n] - before[n]
+                                           for n in before}, step_ms,
+                                  frame_ms))
+    finally:
+        CL.cluster_edges = cluster
     launches = dict(CB.LAUNCHES)
     k3_lanes = {"frame": watch.read("frame")}
 
@@ -1293,6 +1452,9 @@ def main():
         # K3: two launches a temporal step, each for both sides
         check(dl["refine_2dof"] == (2 if k else 0),
               f"frame {k}: K3 launched {dl['refine_2dof']} times")
+        # K4: once in the stereo step, once in the temporal step
+        check(dl["cluster_edges"] == (2 if k else 1),
+              f"frame {k}: K4 launched {dl['cluster_edges']} times")
         m = fr.mates
         v = m.valid
         check(m.gamma.shape == (cfg.max_mates, 3), f"frame {k}: gamma shape")
@@ -1332,16 +1494,19 @@ def main():
     check(len(k3_ops) == 1 and len(pred_args) == 1,
           f"frame 2: {len(k3_ops)} refine_2dof_pair_batch calls recorded")
     split = temporal_split(predict, pred_args[0])
-    split["rest of match_temporal"] = split["match_temporal"] - sum(
-        split[nm] for nm in ("interleave_pair_maps", "refine_2dof_pair_batch",
-                             "cluster_edges", "dense NCC + descriptor gates"))
     print(f"temporal step of frame 2 (prediction mode), per stage, each "
           f"synchronised, mean of 3, ms: "
           + ", ".join(f"{nm} {ms:.2f}" for nm, ms in split.items())
           + f" [{card}]")
+    split = stereo_split(stereo, frames[2])
+    print(f"stereo step of frame 2, per stage, each synchronised, mean of "
+          f"3, ms: " + ", ".join(f"{nm} {ms:.2f}" for nm, ms in split.items())
+          + f" [{card}]")
 
     # ---- 6b. K3 vs plain, bit for bit, on frame 2's operands ----
     kernels.append(phase_k3(k3_ops, card, H, W))
+    # ---- 6c. K4 vs plain, bit for bit, on frame 2's two calls ----
+    kernels.append(phase_k4(cl_ops, card))
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1367,6 +1532,16 @@ def main():
           "non-finite delta, lanes ended by the singular-lane guard): "
           + "; ".join(f"{p} {c} / {n} / {g}" for p, (c, n, g)
                       in k3_lanes.items()))
+    # K4 once per stereo step (one K1 launch each) and once per temporal
+    # step (two K3 launches each)
+    for path, c in by_path.items():
+        check(c["cluster_edges"] == c["toed_gradient_field"]
+              + c["refine_2dof"] // 2,
+              f"{path}: K4 launched {c['cluster_edges']} times for "
+              f"{c['toed_gradient_field']} stereo and "
+              f"{c['refine_2dof'] // 2} temporal steps")
+    print("K4 launches per path (stereo + temporal steps): "
+          + "; ".join(f"{p} {c['cluster_edges']}" for p, c in by_path.items()))
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they
@@ -1412,7 +1587,8 @@ def main():
             "bound_ms_no_fma", "pct_of_bound_no_fma", "maps_interleave_ms",
             "values_not_bit_equal", "forms", "launches_by_path",
             "step_launches_ms", "glue_ms", "pair_batch_ms",
-            "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy")}
+            "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
+            "calls")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,14 @@ connected components of the thresholded pairwise-distance graph by
 min-label propagation with pointer jumping, the centroid-ranked
 MAX_CLUSTER_SIZE cap (members beyond the cap nearest the component
 centroid revert to singletons), and the Gaussian-weighted cluster
-representative. Rows are processed in chunks to bound the (rows, C, C, C)
-rank comparison; chunking never changes results.
+representative.
+
+`cluster_edges` runs, on CUDA tensors, the hand-written kernel
+`csrc/cluster_edges.cu` (K4, `cluster_edges_cuda`), and on CPU tensors its
+plain twin `cluster_edges_plain`, which processes rows in chunks to bound
+the (rows, C, C, C) rank comparison (chunking never changes results). The
+twin sums over slots in ascending order, one term after another, as a
+lane of the kernel does, so the two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -14,7 +20,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+
+MAX_SLOTS = 32        # K4 holds a row's slots in one warp
 
 
 class ClusterResult(NamedTuple):
@@ -26,22 +37,48 @@ class ClusterResult(NamedTuple):
     members: torch.Tensor  # (N, C, C) bool membership matrix M[r, j]
 
 
-def _labels(x, y, theta, mask, dist_thresh, orient_thresh_deg,
-            by_orientation, max_cluster_size):
+def _f32(v: float) -> float:
+    """`v` rounded to float32, as PyTorch rounds a Python scalar it
+    compares with or multiplies into a float32 tensor."""
+    return float(np.float32(v))
+
+
+def _scalars(dist_thresh, orient_thresh_deg, gauss_sigma):
+    """(distance threshold, orientation threshold in radians, 1 / sigma)
+    as the float32 values both versions compare and multiply with."""
+    return (_f32(dist_thresh), _f32(math.radians(orient_thresh_deg)),
+            float(np.float32(1.0) / np.float32(gauss_sigma)))
+
+
+def _rounds(C: int) -> int:
+    # reach after k rounds: d_{k+1} = 2 (d_k + 1)
+    return max(1, int(math.ceil(math.log2(max(C, 2)))) + 2)
+
+
+def _seq_sum(t):
+    """Sum over the last axis in ascending order, one term after another
+    (the order in which a lane of K4 adds its slots)."""
+    s = t[..., 0]
+    for j in range(1, t.shape[-1]):
+        s = s + t[..., j]
+    return s
+
+
+def _labels(x, y, theta, mask, thresh, orient_rad, by_orientation,
+            max_cluster_size):
     N, C = x.shape
     dx = x[:, :, None] - x[:, None, :]
     dy = y[:, :, None] - y[:, None, :]
-    adj = torch.sqrt(dx * dx + dy * dy) < dist_thresh
+    adj = torch.sqrt(dx * dx + dy * dy) < thresh
     if by_orientation:
         dth = torch.abs(theta[:, :, None] - theta[:, None, :])
-        adj = adj & (dth < math.radians(orient_thresh_deg))
+        adj = adj & (dth < orient_rad)
     eye = torch.eye(C, dtype=torch.bool, device=x.device)
     adj = (adj & mask[:, :, None] & mask[:, None, :]) | eye
     iota = torch.arange(C, device=x.device)
     lab = iota.expand(N, C).clone()
     big = torch.full((), C, dtype=lab.dtype, device=x.device)
-    # reach after k rounds: d_{k+1} = 2 (d_k + 1)
-    for _ in range(max(1, int(math.ceil(math.log2(max(C, 2)))) + 2)):
+    for _ in range(_rounds(C)):
         masked = torch.where(adj, lab[:, None, :], big)
         lab = torch.minimum(lab, masked.min(-1).values)
         lab = torch.minimum(lab, torch.gather(lab, 1, lab))  # pointer jump
@@ -50,9 +87,9 @@ def _labels(x, y, theta, mask, dist_thresh, orient_thresh_deg,
     if max_cluster_size and max_cluster_size < C:
         M0 = (lab[:, None, :] == iota[:, None]) & mask[:, None, :]
         M0f = M0.to(x.dtype)
-        cnt0 = torch.clamp(M0f.sum(-1), min=1.0)
-        cx0 = torch.einsum("nrj,nj->nr", M0f, x) / cnt0
-        cy0 = torch.einsum("nrj,nj->nr", M0f, y) / cnt0
+        cnt0 = torch.clamp(M0f.sum(-1), min=1.0)   # integers: any order
+        cx0 = _seq_sum(M0f * x[:, None, :]) / cnt0
+        cy0 = _seq_sum(M0f * y[:, None, :]) / cnt0
         ddx0 = x[:, None, :] - cx0[:, :, None]
         ddy0 = y[:, None, :] - cy0[:, :, None]
         dc = torch.sqrt(ddx0 * ddx0 + ddy0 * ddy0)          # (n, r, j)
@@ -72,37 +109,99 @@ def _labels(x, y, theta, mask, dist_thresh, orient_thresh_deg,
     return lab
 
 
-def cluster_edges(x, y, theta, mask, dist_thresh: float = 1.0,
-                  orient_thresh_deg: float = 20.0, by_orientation: bool = True,
-                  gauss_sigma: float = 2.0, max_cluster_size: int = 0,
-                  chunk: int = 4096) -> ClusterResult:
-    """Cluster the candidate sets of (N, C) edge arrays (see module
-    docstring); the orientation gate is the raw radian difference."""
+def cluster_edges_plain(x, y, theta, mask, dist_thresh: float = 1.0,
+                        orient_thresh_deg: float = 20.0,
+                        by_orientation: bool = True, gauss_sigma: float = 2.0,
+                        max_cluster_size: int = 0,
+                        chunk: int = 4096) -> ClusterResult:
+    """The plain twin of K4 (see module docstring), on any device; the
+    orientation gate is the raw radian difference."""
     N, C = x.shape
+    thresh, orient_rad, inv_sigma = _scalars(dist_thresh, orient_thresh_deg,
+                                             gauss_sigma)
     lab = torch.cat([
         _labels(x[s:s + chunk], y[s:s + chunk], theta[s:s + chunk],
-                mask[s:s + chunk], dist_thresh, orient_thresh_deg,
-                by_orientation, max_cluster_size)
+                mask[s:s + chunk], thresh, orient_rad, by_orientation,
+                max_cluster_size)
         for s in range(0, max(N, 1), chunk)])
     iota = torch.arange(C, device=x.device)
     M = (lab[:, None, :] == iota[:, None]) & mask[:, None, :]
     Mf = M.to(x.dtype)
-    safe_cnt = torch.clamp(Mf.sum(-1), min=1.0)
-    cen_x = torch.einsum("nrj,nj->nr", Mf, x) / safe_cnt
-    cen_y = torch.einsum("nrj,nj->nr", Mf, y) / safe_cnt
+    safe_cnt = torch.clamp(Mf.sum(-1), min=1.0)         # integers: any order
+    cen_x = _seq_sum(Mf * x[:, None, :]) / safe_cnt
+    cen_y = _seq_sum(Mf * y[:, None, :]) / safe_cnt
     ddx = x[:, None, :] - cen_x[:, :, None]
     ddy = y[:, None, :] - cen_y[:, :, None]
     d_cen = torch.sqrt(ddx * ddx + ddy * ddy)
-    mean_shift = (Mf * d_cen).sum(-1) / safe_cnt
-    w = torch.exp(-0.5 * ((d_cen - mean_shift[:, :, None]) / gauss_sigma) ** 2)
-    w = w * Mf
-    wsum = torch.clamp(w.sum(-1), min=1e-12)
-    gx = torch.einsum("nrj,nj->nr", w, x) / wsum
-    gy = torch.einsum("nrj,nj->nr", w, y) / wsum
-    gt = torch.einsum("nrj,nj->nr", w, theta) / wsum
+    mean_shift = _seq_sum(Mf * d_cen) / safe_cnt
+    z = (d_cen - mean_shift[:, :, None]) * inv_sigma
+    w = torch.exp(-0.5 * (z * z)) * Mf
+    wsum = torch.clamp(_seq_sum(w), min=1e-12)
+    gx = _seq_sum(w * x[:, None, :]) / wsum
+    gy = _seq_sum(w * y[:, None, :]) / wsum
+    gt = _seq_sum(w * theta[:, None, :]) / wsum
     rep = (lab == iota) & mask
     zero = torch.zeros_like(x)
     return ClusterResult(x=torch.where(rep, gx, zero),
                          y=torch.where(rep, gy, zero),
                          theta=torch.where(rep, gt, zero),
                          mask=rep, label=lab, members=M)
+
+
+def cluster_edges_cuda(x, y, theta, mask, dist_thresh: float = 1.0,
+                       orient_thresh_deg: float = 20.0,
+                       by_orientation: bool = True, gauss_sigma: float = 2.0,
+                       max_cluster_size: int = 0) -> ClusterResult:
+    """The hand-written kernel (csrc/cluster_edges.cu, K4): same contract
+    as `cluster_edges_plain`, for contiguous float32 (N, C <= 32) CUDA
+    tensors and a bool mask; one launch."""
+    dev = x.device
+    if not x.is_cuda:
+        raise ValueError(f"cluster_edges_cuda: needs CUDA tensors, got them "
+                         f"on {dev}")
+    if x.dim() != 2:
+        raise ValueError(f"cluster_edges_cuda: x of shape {tuple(x.shape)}, "
+                         f"expected (N, C)")
+    N, C = x.shape
+    if C > MAX_SLOTS:
+        raise ValueError(f"cluster_edges_cuda: {C} slots a row, the kernel "
+                         f"takes at most {MAX_SLOTS}")
+    for name, t in (("x", x), ("y", y), ("theta", theta)):
+        CB.require(t, name, torch.float32, (N, C), dev)
+    CB.require(mask, "mask", torch.bool, (N, C), dev)
+    out = [torch.empty((N, C), dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    rep = torch.empty((N, C), dtype=torch.bool, device=dev)
+    lab = torch.empty((N, C), dtype=torch.int64, device=dev)
+    members = torch.empty((N, C, C), dtype=torch.bool, device=dev)
+    res = ClusterResult(*out, mask=rep, label=lab, members=members)
+    if N == 0 or C == 0:
+        return res
+    thresh, orient_rad, inv_sigma = _scalars(dist_thresh, orient_thresh_deg,
+                                             gauss_sigma)
+    with torch.cuda.device(dev):
+        err = CB.lib().cluster_edges_launch(
+            x.data_ptr(), y.data_ptr(), theta.data_ptr(), mask.data_ptr(), N,
+            C, thresh, int(bool(by_orientation)), orient_rad, inv_sigma,
+            int(max_cluster_size), _rounds(C),
+            *(t.data_ptr() for t in res), CB.stream_ptr(dev))
+    CB.check(err, "cluster_edges")
+    CB.LAUNCHES["cluster_edges"] += 1
+    return res
+
+
+def cluster_edges(x, y, theta, mask, dist_thresh: float = 1.0,
+                  orient_thresh_deg: float = 20.0, by_orientation: bool = True,
+                  gauss_sigma: float = 2.0, max_cluster_size: int = 0,
+                  chunk: int = 4096) -> ClusterResult:
+    """Cluster the candidate sets of (N, C) edge arrays (see module
+    docstring): K4 for CUDA tensors, the plain twin (in row chunks of
+    `chunk`) for CPU tensors."""
+    kw = dict(dist_thresh=dist_thresh, orient_thresh_deg=orient_thresh_deg,
+              by_orientation=by_orientation, gauss_sigma=gauss_sigma,
+              max_cluster_size=max_cluster_size)
+    if x.is_cuda:
+        return cluster_edges_cuda(x, y, theta, mask, **kw)
+    if x.device.type != "cpu":
+        raise ValueError(f"cluster_edges: unsupported device {x.device}")
+    return cluster_edges_plain(x, y, theta, mask, chunk=chunk, **kw)

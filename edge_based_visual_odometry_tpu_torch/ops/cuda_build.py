@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
-            "refine_2dof": 0}
+            "refine_2dof": 0, "cluster_edges": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,10 @@ _SIGNATURES = {
                                  + [_I] * 7 + [_F] * 2 + [_P, _I, _P]
                                  + [_P] * 7),
     "refine_2dof_info": [_P],
+    # K4: x, y, theta, mask, N, C, thresh, by_orient, orient_rad,
+    # inv_sigma, cap, rounds, outputs, stream
+    "cluster_edges_launch": ([_P] * 4 + [_I] * 2 + [_F, _I, _F, _F, _I, _I]
+                             + [_P] * 7),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,70 @@
+"""Seeded numpy inputs for `cluster_edges`: the cases the port's CPU tests
+hold against JAX and its `gpu` tests hold K4 against the twin with. No
+JAX or torch here: `case(name, N, C)` returns float32 x, y, theta (N, C),
+a bool mask (N, C) and the keyword arguments."""
+
+import numpy as np
+
+CASES = ("clumps", "clumps_oriented", "all_masked_rows", "big_component",
+         "distance_ties", "nonfinite_masked")
+
+
+def _clumps(g, N, C, spread=0.6):
+    """Rows of C slots scattered around one point, dense enough that
+    components exceed a cap of 10."""
+    x = g.uniform(0, 50, (N, 1)) + g.normal(0, spread, (N, C))
+    y = g.uniform(0, 50, (N, 1)) + g.normal(0, spread, (N, C))
+    th = g.uniform(-1, 1, (N, C))
+    return x, y, th, g.random((N, C)) > 0.2
+
+
+def _lattice_row(g, C):
+    """A 5 x 5 lattice of spacing 0.25 about a dyadic centre, in shuffled
+    slots: its centroid is exact, so members tie in their distance to it
+    (4 at 0.5, 8 at 0.559, ...); the other slots lie far apart."""
+    off = np.array([-0.5, -0.25, 0.0, 0.25, 0.5])
+    ox, oy = (a.ravel() for a in np.meshgrid(off, off))
+    cx, cy = g.integers(2, 40, 2) + 0.5
+    x = np.concatenate([cx + ox, 100 + 3.0 * np.arange(C - 25)])
+    y = np.concatenate([cy + oy, 100 + 3.0 * np.arange(C - 25)])
+    p = g.permutation(C)
+    return x[p], y[p]
+
+
+def case(name, N, C, seed=0):
+    g = np.random.default_rng(seed)
+    kw = dict(dist_thresh=1.0, orient_thresh_deg=20.0, by_orientation=False,
+              gauss_sigma=2.0, max_cluster_size=10)
+    if name in ("clumps", "clumps_oriented"):
+        x, y, th, mask = _clumps(g, N, C)
+        kw["by_orientation"] = name == "clumps_oriented"
+    elif name == "all_masked_rows":
+        x, y, th, mask = _clumps(g, N, C)
+        mask[::3] = False
+    elif name == "big_component":
+        # every slot within 0.2 of its row's centre: one component of up to
+        # C members, cut to the cap
+        x, y, th, mask = _clumps(g, N, C, spread=0.2)
+        mask = g.random((N, C)) > 0.05
+    elif name == "distance_ties":
+        if C < 25:
+            raise ValueError("the lattice needs 25 slots a row")
+        rows = [_lattice_row(g, C) for _ in range(N)]
+        x = np.stack([r[0] for r in rows])
+        y = np.stack([r[1] for r in rows])
+        th = np.zeros((N, C))
+        mask = np.ones((N, C), bool)
+        mask[1::2, g.integers(0, C)] = False
+    elif name == "nonfinite_masked":
+        x, y, th, mask = _clumps(g, N, C)
+        bad = ~mask & (np.arange(N)[:, None] % 2 == 0)
+        vals = np.array([np.nan, np.inf, -np.inf])[g.integers(0, 3, (N, C))]
+        x = np.where(bad, vals, x)
+        y = np.where(bad & (g.random((N, C)) > 0.5), np.nan, y)
+        th = np.where(bad & (g.random((N, C)) > 0.5), np.inf, th)
+        kw["by_orientation"] = True
+    else:
+        raise ValueError(f"no clustering case {name!r}")
+    f32 = np.float32
+    return (x.astype(f32), y.astype(f32), th.astype(f32),
+            np.asarray(mask, bool), kw)

@@ -83,6 +83,30 @@ def test_k3_work_at_production_scale_is_flop_bound():
     assert b["bound_ms"] * 1e3 == pytest.approx(94.970, abs=1e-2)
 
 
+def test_k4_work_from_a_hand_made_shape():
+    """Two rows of 4 slots, cap 10 >= C (no cap), no orientation gate: 32
+    slot pairs x (6 + 25) flops, 8 slots x 6 divisions; 34 bytes a slot
+    and one membership byte a pair."""
+    assert C.k4_work(2, 4, False, 10) == (32 * 31 + 8 * 6, 8 * 34 + 32)
+    # the gate adds 1 flop a pair; the cap 4 a pair and 8 a slot
+    assert C.k4_work(2, 4, True, 3) == (32 * 36 + 8 * 14, 8 * 34 + 32)
+    assert C.k4_work(0, 32, True, 10) == (0, 0)
+
+
+@pytest.mark.parametrize("N,orient,flops,nbytes,us", [
+    (32_768, False, 1_189_085_184, 69_206_016, 20.6585),   # stereo call
+    (24_576, True, 916_979_712, 51_904_512, 15.4939)])     # temporal call
+def test_k4_work_at_production_shape(N, orient, flops, nbytes, us):
+    """`VOConfig()`: 32 slots a row, cap 10. 13 bytes in and 21 out a slot
+    and a 1 KiB membership matrix a row: bytes bound both calls, just
+    above the flops of the O(N C^2) form."""
+    assert C.k4_work(N, 32, orient, 10) == (flops, nbytes)
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
+    assert flops / C.PEAK_FLOPS > 0.85 * nbytes / C.PEAK_BYTES
+
+
 def test_bound_takes_the_larger_time():
     b = C.bound(67e9, 3.35e9)          # 1 ms of flops, 1 ms of bytes
     assert b["bound_ms"] == pytest.approx(1.0)

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch)
+"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4)
 against their plain-PyTorch twins, on the card, and the paths through them (the pipeline, BA, the
 CLI, the NCCL pair step and its production memory). Every test here needs
 a CUDA device
@@ -16,10 +16,12 @@ import chip_smoke as C
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
+from tests import cluster_cases as CC
 
 pytestmark = pytest.mark.gpu
 
@@ -403,6 +405,80 @@ def test_wrappers_validate_operands(dev):
         GN.refine_2dof_sides_cuda(kfs, m4[..., :3], pack, pack, act)
     with pytest.raises(ValueError):
         GN.refine_2dof_sides_cuda(kfs * 2, m4, pack, pack, act)
+    # K4: float32 (N, C <= 32) contiguous coordinates, a bool mask
+    xy = torch.zeros(8, 32, device=dev)
+    m = torch.ones(8, 32, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(xy, xy, xy.double(), m)
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(xy, xy, xy, m.float())
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(xy, xy.t().contiguous().t(), xy, m)
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(xy, xy, xy, m[:4])
+    big = torch.zeros(8, 33, device=dev)
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(big, big, big, torch.ones_like(big).bool())
+
+
+def _cluster_args(name, N, C, dev, seed=0, **over):
+    x, y, th, mask, kw = CC.case(name, N, C, seed)
+    kw.update(over)
+    return [torch.from_numpy(a).to(dev) for a in (x, y, th, mask)], kw
+
+
+def _assert_cluster_same(k, p):
+    """K4 and its twin: label, mask and members equal, x / y / theta bit
+    for bit (a NaN equals a NaN)."""
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            same = ((a.view(torch.int32) == b.view(torch.int32))
+                    | (a.isnan() & b.isnan()))
+            assert bool(same.all())
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_cluster_kernel_matches_twin_bit_for_bit(dev, name):
+    """K4 against the twin run on the card, 4,096 rows of 32 slots, cap 10
+    (`tests/cluster_cases.py`)."""
+    args, kw = _cluster_args(name, 4096, 32, dev, seed=1)
+    k = CL.cluster_edges_cuda(*args, **kw)
+    p = CL.cluster_edges_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_cluster_same(k, p)
+    assert int(k.mask.sum()) > 0 or name == "all_masked_rows"
+
+
+@pytest.mark.parametrize("N,C,cap", [(4096, 16, 10), (1, 32, 10), (0, 32, 10),
+                                     (1, 16, 4), (0, 16, 4), (300, 8, 3),
+                                     (500, 32, 0), (500, 25, 10)])
+def test_cluster_kernel_small_shapes(dev, N, C, cap):
+    """C < 32 (lanes past C hold no slot), one row, no row, no cap."""
+    args, kw = _cluster_args("clumps_oriented", N, C, dev, seed=N + C,
+                             max_cluster_size=cap)
+    k = CL.cluster_edges_cuda(*args, **kw)
+    p = CL.cluster_edges_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_cluster_same(k, p)
+
+
+def test_cluster_edges_dispatch_counts_one_launch(dev, monkeypatch):
+    args, kw = _cluster_args("clumps", 64, 32, dev)
+    before = CB.LAUNCHES["cluster_edges"]
+    k = CL.cluster_edges(*args, **kw)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["cluster_edges"] == before + 1
+    _assert_cluster_same(k, CL.cluster_edges_plain(*args, **kw))
+
+    def no_build():
+        raise AssertionError("CPU tensors must not build or launch a kernel")
+
+    monkeypatch.setattr(CB, "lib", no_build)
+    CL.cluster_edges(*(a.cpu() for a in args), **kw)
+    assert CB.LAUNCHES["cluster_edges"] == before + 1
 
 
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
@@ -421,6 +497,8 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     # K3: two phases, each one launch for both sides, in each of the two
     # temporal steps
     assert n_gpu["refine_2dof"] == 4
+    # K4: once in each of the 3 stereo and 2 temporal steps
+    assert n_gpu["cluster_edges"] == 5
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()

@@ -25,6 +25,7 @@ from edge_based_visual_odometry_tpu_torch.ops import descriptors as D
 from edge_based_visual_odometry_tpu_torch.ops import grid as G
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
+from tests import cluster_cases as CC
 
 pytestmark = pytest.mark.heavy
 torch.set_num_threads(2)
@@ -197,6 +198,63 @@ def test_cluster_edges_matches(by_orientation):
     np.testing.assert_array_equal(out.members.numpy(), np.asarray(ref.members))
     for a, b in ((out.x, ref.x), (out.y, ref.y), (out.theta, ref.theta)):
         close(a.numpy(), b)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_cluster_edges_plain_matches_jax_at_production_width(name):
+    """K4's twin against JAX at C = 32, cap 10 (`tests/cluster_cases.py`:
+    clumps with and without the orientation gate, all-masked rows, one
+    component larger than the cap, ties in the distance to the centroid,
+    NaN and inf at masked-out slots)."""
+    x, y, th, mask, kw = CC.case(name, 256, 32, seed=CC.CASES.index(name))
+    ref = JCL.cluster_edges(jnp.asarray(x), jnp.asarray(y), jnp.asarray(th),
+                            jnp.asarray(mask), **kw)
+    out = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
+    np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(out.label.numpy(), np.asarray(ref.label))
+    np.testing.assert_array_equal(out.members.numpy(), np.asarray(ref.members))
+    for a, b in ((out.x, ref.x), (out.y, ref.y), (out.theta, ref.theta)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(
+            a.numpy(), b, rtol=1e-5, equal_nan=True,
+            atol=1e-5 * max(1.0, float(np.nanmax(np.abs(b), initial=0.0))))
+    if name == "big_component":       # the cap split components
+        assert int((out.members.sum(-1) == 10).sum()) > 0
+        assert bool((out.members.sum(-1) <= 10).all())
+    if name == "nonfinite_masked":    # the poisoned rows are the even ones
+        assert bool(out.x[0::2][out.mask[0::2]].isnan().any())
+        assert bool(out.x[1::2].isfinite().all())
+
+
+def test_cluster_edges_plain_chunking_changes_nothing():
+    x, y, th, mask, kw = CC.case("clumps_oriented", 200, 32, seed=3)
+    a = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), chunk=24, **kw)
+    b = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), chunk=4096, **kw)
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
+
+
+def test_cluster_edges_dispatch_off_the_card(monkeypatch):
+    """CPU tensors take the twin and never build the kernels; K4's wrapper
+    refuses them; any other device raises."""
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+
+    def no_build():
+        raise AssertionError("CPU tensors must not build or launch a kernel")
+
+    monkeypatch.setattr(CB, "lib", no_build)
+    x, y, th, mask, kw = CC.case("clumps", 16, 32)
+    before = dict(CB.LAUNCHES)
+    out = CL.cluster_edges(t(x), t(y), t(th), t(mask), **kw)
+    ref = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
+    assert CB.LAUNCHES == before
+    for u, v in zip(out, ref):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        CL.cluster_edges_cuda(t(x), t(y), t(th), t(mask), **kw)
+    meta = [a.to("meta") for a in (t(x), t(y), t(th), t(mask))]
+    with pytest.raises(ValueError):
+        CL.cluster_edges(*meta, **kw)
 
 
 @pytest.mark.parametrize("higher_better", [True, False])

@@ -33,6 +33,12 @@ Phases (each passes or exits non-zero):
      on the operands frame 2's stereo and temporal steps gave
      `cluster_edges`; each call timed beside its bound and the twin
      (phase 2 prints its registers and spills);
+ 6d. K5 (edge descriptors) vs its plain twin run on the card, bit for bit
+     (bf16 bit patterns), on the operands of the three calls of frame 2's
+     stereo step (left edges, right edges, final mates); each call timed
+     beside its bound (and its FMA-free bound) and the twin (phase 2
+     prints its registers and spills; `scripts/k5_variants.py` times the
+     launch alone and its parts);
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -61,7 +67,8 @@ Phases (each passes or exits non-zero):
      every frame, ATE under 5% of the GT path;
 On every path (6-10) the active K3 lanes are checked for a finite
 delta, and the lanes ended by the singular-lane guard are counted; K4 is
-launched once per stereo step and once per temporal step.
+launched once per stereo step and once per temporal step, K5 three times
+per stereo step.
 Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
@@ -162,6 +169,23 @@ K4_REP_SLOT_FLOPS = 6
 K4_SLOT_IN_BYTES = 3 * 4 + 1            # x y theta, mask
 K4_SLOT_OUT_BYTES = 3 * 4 + 1 + 8       # x y theta, mask, int64 label
 
+# K5 (csrc/edge_descriptors.cu), counted from its code (abs, min, max and
+# selects not counted): per sample 8 coordinate, 18 tap, 2 x 9 bilinear,
+# 5 magnitude (its sqrt as one), 16 angle (atan2 as 15, as in K1), 4 bin
+# position (fmod and its sign fix as 2) and 4 a bin for the 2 bins of the
+# circular orientation hat that can be nonzero (its other 6 are exact
+# zeros and not counted, as the histogram is counted at its nonzero
+# terms); the histogram: a multiply and an add for each nonzero spatial
+# weight and each of the 2 orientation bins the hat can touch; per
+# keypoint the two norms (2 x 128 squares and adds, 2 sqrt), 2 x 128
+# divisions and 128 scalings. Bytes: the two maps once; per keypoint 5
+# floats in (x, y, theta, cos, sin) and 128 bf16 out; the tables.
+K5_SAMPLE_FLOPS = 8 + 18 + 18 + 5 + 16 + 4 + 2 * 4
+K5_TERM_FLOPS = 2 * 2
+K5_KEYPOINT_FLOPS = 4 * 128 + 2 + 3 * 128
+K5_KEYPOINT_IN_BYTES = 5 * 4
+K5_KEYPOINT_OUT_BYTES = 128 * 2
+
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """Least time in ms for `flops` and `nbytes` on the card, and what
@@ -213,6 +237,19 @@ def k4_work(N, C, by_orientation, max_cluster_size):
                       + K4_CAP_PAIR_FLOPS * cap)
              + slots * (K4_REP_SLOT_FLOPS + K4_CAP_SLOT_FLOPS * cap))
     return flops, slots * (K4_SLOT_IN_BYTES + K4_SLOT_OUT_BYTES) + pairs
+
+
+def k5_work(K, S, nonzero, H, W):
+    """(flops, bytes) of one K5 launch over K keypoints of S samples:
+    `nonzero` the spatial weights that are not 0 in the table (S x 16),
+    read with their sample index; the (ii, jj, gauss) tables S floats
+    each."""
+    flops = K * (S * K5_SAMPLE_FLOPS + nonzero * K5_TERM_FLOPS
+                 + K5_KEYPOINT_FLOPS)
+    nbytes = (2 * H * W * 4 + K * (K5_KEYPOINT_IN_BYTES
+                                   + K5_KEYPOINT_OUT_BYTES)
+              + 3 * S * 4 + nonzero * 8)
+    return flops, nbytes
 
 
 def fail(msg):
@@ -769,6 +806,83 @@ def phase_k4(cl_ops, card):
         **frame)
 
 
+def bf16_differ(a, b):
+    """Entries of two bf16 tensors whose bit patterns differ (a NaN equals
+    a NaN), and the largest difference over the finite ones in units of
+    one bf16 ulp of max(|a|, |b|, 1)."""
+    ne = ((a.view(torch.int16) != b.view(torch.int16))
+          & ~(a.isnan() & b.isnan()))
+    u, v = a.float(), b.float()
+    fin = u.isfinite() & v.isfinite()
+    mag = torch.clamp(torch.maximum(u.abs(), v.abs()), min=1.0)
+    ulps = (u - v).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return int(ne.sum()), float(ulps[fin].max()) if bool(fin.any()) else 0.0
+
+
+def phase_k5(desc_ops, card):
+    """Phase 6d: K5 against its twin run on the card, bit for bit (bf16 bit
+    patterns, a NaN equal to a NaN), on the operands of the three
+    `edge_descriptors` calls of frame 2's stereo step (`desc_ops`: (args,
+    kwargs) of each); each call timed with CUDA events beside its bound,
+    and the twin timed. Returns the kernel's JSON entry, its times and
+    bound those of a stereo step's three calls."""
+    from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
+
+    check(len(desc_ops) == 3, f"K5: {len(desc_ops)} calls of edge_descriptors "
+                              f"recorded in frame 2's stereo step, not 3")
+    calls, err = {}, 0.0
+    for name, (a, kw) in zip(("left edges", "right edges", "mates"),
+                             desc_ops):
+        N = a[2].shape[0]
+        H, W = a[0].shape
+        k = DESC.edge_descriptors_cuda(*a, **kw)
+        p = DESC.edge_descriptors_plain(*a, **kw)
+        torch.cuda.synchronize()
+        check(k.shape == (N, 256) and k.dtype == torch.bfloat16,
+              f"K5 {name}: output {tuple(k.shape)} {k.dtype}")
+        n_bad, ulps = bf16_differ(k, p)
+        check(n_bad == 0, f"K5 {name} call ({N} edges): {n_bad} bf16 entries "
+                          f"differ from the twin, at most {ulps:.2f} bf16 ulp")
+        fin = k.isfinite() & p.isfinite()
+        err = max(err, float((k.float() - p.float()).abs()[fin].max()))
+        S = kw["n_samples"] ** 2
+        SP = DESC._static_tables(kw["n_samples"], kw["n_spatial"],
+                                 kw["spacing"], k.device)[3]
+        nonzero = int((SP != 0).sum())
+        row = with_bound(
+            cuda_ms(lambda: DESC.edge_descriptors_cuda(*a, **kw), 20),
+            *k5_work(2 * N, S, nonzero, H, W), fma_free=True)
+        row.update(plain_ms=cuda_ms(
+            lambda: DESC.edge_descriptors_plain(*a, **kw), 2),
+            edges=N, keypoints=2 * N, nonzero_weights=nonzero,
+            nan_rows=int(k.isnan().any(1).sum()))
+        calls[name] = row
+        print(f"K5 edge_descriptors, {name} ({N} edges, {2 * N} keypoints, "
+              f"{S} samples, {nonzero} nonzero spatial weights, "
+              f"{row['nan_rows']} rows with NaN): bit-equal to its twin on the "
+              f"card (bf16 bits); kernel {row['ms']:.4f} ms, twin "
+              f"{row['plain_ms']:.3f} ms; bound {row['bound_ms'] * 1e3:.1f} us "
+              f"({row['bound_by']}: {row['flops']} flop, {row['bytes']} B), "
+              f"{row['pct_of_bound']:.1f}% of it, FMA-free bound "
+              f"{row['bound_ms_no_fma'] * 1e3:.1f} us, "
+              f"{row['pct_of_bound_no_fma']:.1f}% of it [{card}]")
+    step = with_bound(sum(r["ms"] for r in calls.values()),
+                      sum(r["flops"] for r in calls.values()),
+                      sum(r["bytes"] for r in calls.values()), fma_free=True)
+    print(f"K5 a stereo step's three calls: {step['ms']:.4f} ms, "
+          f"{step['pct_of_bound']:.1f}% of {step['bound_ms'] * 1e3:.1f} us "
+          f"({step['pct_of_bound_no_fma']:.1f}% of the FMA-free "
+          f"{step['bound_ms_no_fma'] * 1e3:.1f} us); twin "
+          f"{sum(r['plain_ms'] for r in calls.values()):.2f} ms [{card}]")
+    return dict(
+        name="edge_descriptors", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/edge_descriptors.cu",
+        replaces="edge_based_visual_odometry_tpu/ops/descriptors.py:114",
+        max_abs_err=err, library_ms=None,
+        plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        **step)
+
+
 def phase_sequence(seq, images, card, work_dir):
     """Phase 7. Returns the kernel launches of the main run."""
     from edge_based_visual_odometry_tpu_torch import cli as CLI
@@ -818,7 +932,8 @@ def phase_sequence(seq, images, card, work_dir):
         check(pf["launches"]["toed_gradient_field"] >= 1
               and pf["launches"]["refine_along_epipolar"] >= 1
               and pf["launches"]["refine_2dof"] == (2 if k else 0)
-              and pf["launches"]["cluster_edges"] == (2 if k else 1),
+              and pf["launches"]["cluster_edges"] == (2 if k else 1)
+              and pf["launches"]["edge_descriptors"] == 3,
               f"sequence frame {k}: kernel launches {pf['launches']}")
         check(pf["mates"] >= 21000,
               f"sequence frame {k}: mates {pf['mates']} < 21000")
@@ -1209,6 +1324,7 @@ def main():
     from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
     from edge_based_visual_odometry_tpu_torch.ops import toed
     from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
@@ -1412,6 +1528,14 @@ def main():
         cl_ops["temporal" if kw["by_orientation"] else "stereo"] = (a, kw)
         return cluster(*a, **kw)
 
+    # the operands of the three edge_descriptors calls of the last stereo
+    # step (frame 2's) for phase 6d
+    describe, desc_ops = DESC.edge_descriptors, []
+
+    def recording_describe(*a, **kw):
+        desc_ops[:] = desc_ops[-2:] + [(a, kw)]
+        return describe(*a, **kw)
+
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
     stereo = pipe._stereo_step
@@ -1425,6 +1549,7 @@ def main():
     CB.reset_launch_counts()
     per_frame = []
     CL.cluster_edges = recording_cluster
+    DESC.edge_descriptors = recording_describe
     try:
         with K3Watch() as watch:
             for k, (l, r) in enumerate(frames):
@@ -1440,6 +1565,7 @@ def main():
                                   frame_ms))
     finally:
         CL.cluster_edges = cluster
+        DESC.edge_descriptors = describe
     launches = dict(CB.LAUNCHES)
     k3_lanes = {"frame": watch.read("frame")}
 
@@ -1455,6 +1581,9 @@ def main():
         # K4: once in the stereo step, once in the temporal step
         check(dl["cluster_edges"] == (2 if k else 1),
               f"frame {k}: K4 launched {dl['cluster_edges']} times")
+        # K5: left edges, right edges, final mates
+        check(dl["edge_descriptors"] == 3,
+              f"frame {k}: K5 launched {dl['edge_descriptors']} times")
         m = fr.mates
         v = m.valid
         check(m.gamma.shape == (cfg.max_mates, 3), f"frame {k}: gamma shape")
@@ -1507,6 +1636,8 @@ def main():
     kernels.append(phase_k3(k3_ops, card, H, W))
     # ---- 6c. K4 vs plain, bit for bit, on frame 2's two calls ----
     kernels.append(phase_k4(cl_ops, card))
+    # ---- 6d. K5 vs plain, bit for bit, on frame 2's three calls ----
+    kernels.append(phase_k5(desc_ops, card))
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1542,6 +1673,14 @@ def main():
               f"{c['refine_2dof'] // 2} temporal steps")
     print("K4 launches per path (stereo + temporal steps): "
           + "; ".join(f"{p} {c['cluster_edges']}" for p, c in by_path.items()))
+    # K5 three times per stereo step
+    for path, c in by_path.items():
+        check(c["edge_descriptors"] == 3 * c["toed_gradient_field"],
+              f"{path}: K5 launched {c['edge_descriptors']} times for "
+              f"{c['toed_gradient_field']} stereo steps")
+    print("K5 launches per path (3 a stereo step): "
+          + "; ".join(f"{p} {c['edge_descriptors']}"
+                      for p, c in by_path.items()))
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they

@@ -1,7 +1,8 @@
 // Device helpers of the photometric Gauss-Newton kernels (epipolar_gn.cu,
 // gn_2dof.cu): round-to-nearest arithmetic, the warp butterfly sum, the
 // tile-clamped bilinear taps of the reference's atlas sampling, and a
-// lane's share of the two rotated side patches.
+// lane's share of the two rotated side patches. The descriptor kernel
+// (edge_descriptors.cu) samples through the same arithmetic, sum and taps.
 //
 // One warp refines one lane. The 2 P^2 samples of the plus and minus
 // patches are spread over the 32 threads, sample s = thread + 32 k in slot

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
-            "refine_2dof": 0, "cluster_edges": 0}
+            "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +54,11 @@ _SIGNATURES = {
     # inv_sigma, cap, rounds, outputs, stream
     "cluster_edges_launch": ([_P] * 4 + [_I] * 2 + [_F, _I, _F, _F, _I, _I]
                              + [_P] * 7),
+    # K5: gx, gy, H, W, kx, ky, kt, ct, st, N, ii, jj, gauss, S, cell_idx,
+    # cell_w, L, tile, stride, two_pi, inv_two_pi, clip, scale, out, stream
+    "edge_descriptors_launch": ([_P] * 2 + [_I] * 2 + [_P] * 5 + [_I]
+                                + [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3
+                                + [_F] * 4 + [_P] * 2),
 }
 
 _lock = threading.Lock()

@@ -112,3 +112,32 @@ def test_bound_takes_the_larger_time():
     assert b["bound_ms"] == pytest.approx(1.0)
     assert C.bound(1e9, 3.35e10)["bound_by"] == "bytes"
     assert C.bound(67e10, 1e6)["bound_ms"] == pytest.approx(10.0)
+
+
+def test_k5_work_from_a_hand_made_shape():
+    """Two keypoints of 4 samples, 6 nonzero spatial weights, 10 x 20 maps:
+    77 flops a sample (the circular hat at the 2 bins it can touch), 4 a
+    nonzero weight (a multiply and an add for each of those 2 bins), 898 a
+    keypoint (two norms, two divisions and the scaling of 128 bins).
+    Bytes: both maps once, 20 in and 256 out a keypoint, 3 tables of 4
+    floats, 8 bytes a nonzero weight."""
+    flops, nbytes = C.k5_work(2, 4, 6, 10, 20)
+    assert flops == 2 * (4 * 77 + 6 * 4 + 898) == 2_460
+    assert nbytes == 2 * 200 * 4 + 2 * 276 + 48 + 48 == 2_248
+    assert C.k5_work(0, 256, 784, 376, 1241)[0] == 0
+
+
+@pytest.mark.parametrize("K,flops,nbytes,us", [
+    (65_536, 1_556_217_856, 21_830_208, 23.2271),       # left / right edges
+    (49_152, 1_167_163_392, 17_308_224, 17.4203),       # final mates
+    (180_224, 4_279_599_104, 53_484_096, 63.8746)])     # a step, maps once
+def test_k5_work_at_production_shape(K, flops, nbytes, us):
+    """`VOConfig()`: 16 x 16 samples, 784 nonzero spatial weights at
+    spacing 0.66 (the CPU's table; the run counts the card's), 376 x 1241
+    maps. Operations bound every call, by 3-4x over the bytes: the
+    samples' arithmetic, not the 256 bytes of bf16 a keypoint writes."""
+    assert C.k5_work(K, 256, 784, 376, 1241) == (flops, nbytes)
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
+    assert flops / C.PEAK_FLOPS > 3 * nbytes / C.PEAK_BYTES

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4)
-against their plain-PyTorch twins, on the card, and the paths through them (the pipeline, BA, the
+"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4,
+K5) against their plain-PyTorch twins, on the card, and the paths through them (the pipeline, BA, the
 CLI, the NCCL pair step and its production memory). Every test here needs
 a CUDA device
 (marker `gpu`) and skips without one. The file imports no JAX, so it also
@@ -18,10 +18,12 @@ from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from tests import cluster_cases as CC
+from tests import descriptor_cases as DC
 
 pytestmark = pytest.mark.gpu
 
@@ -419,6 +421,25 @@ def test_wrappers_validate_operands(dev):
     big = torch.zeros(8, 33, device=dev)
     with pytest.raises(ValueError):
         CL.cluster_edges_cuda(big, big, big, torch.ones_like(big).bool())
+    # K5: float32 contiguous (H, W) maps and (N,) edges, 4 x 4 x 8 bins,
+    # at most 16 x 16 samples, an atlas stride that is a power of two
+    g = torch.zeros(40, 50, device=dev)
+    e = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g.double(), g, e, e, e)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, torch.zeros(50, 40, device=dev).t(), e,
+                                   e, e)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, g, e, e[:4], e)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, g, e, e, e.double())
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, g, e, e, e, n_orient=16)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, g, e, e, e, n_samples=17)
+    with pytest.raises(ValueError):
+        DESC.edge_descriptors_cuda(g, g, e, e, e, stride=6)
 
 
 def _cluster_args(name, N, C, dev, seed=0, **over):
@@ -481,6 +502,71 @@ def test_cluster_edges_dispatch_counts_one_launch(dev, monkeypatch):
     assert CB.LAUNCHES["cluster_edges"] == before + 1
 
 
+def _desc_args(name, N, dev, seed=0):
+    maps, edges, kw = DC.case(name, N, seed)
+    return [torch.from_numpy(a).to(dev) for a in maps + edges], kw
+
+
+def _assert_bf16_same(k, p):
+    """K5 and its twin: bf16 bit for bit (a NaN equals a NaN)."""
+    assert k.shape == p.shape and k.dtype == p.dtype == torch.bfloat16
+    same = ((k.view(torch.int16) == p.view(torch.int16))
+            | (k.isnan() & p.isnan()))
+    assert bool(same.all())
+
+
+@pytest.mark.parametrize("name", DC.CASES)
+def test_descriptor_kernel_matches_twin_bit_for_bit(dev, name):
+    """K5 against the twin run on the card, 2,048 edges (4,096 keypoints)
+    of each case of `tests/descriptor_cases.py`."""
+    args, kw = _desc_args(name, 2048, dev, seed=1)
+    k = DESC.edge_descriptors_cuda(*args, **kw)
+    p = DESC.edge_descriptors_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bf16_same(k, p)
+    assert k.shape == (2048, 256)
+
+
+@pytest.mark.parametrize("N", [0, 1, 3, 4097])
+def test_descriptor_kernel_small_shapes(dev, N):
+    """No edge, one edge, and counts whose keypoints end inside a block."""
+    args, kw = _desc_args("borders", N, dev, seed=N)
+    k = DESC.edge_descriptors_cuda(*args, **kw)
+    p = DESC.edge_descriptors_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bf16_same(k, p)
+    assert k.shape == (N, 256)
+
+
+@pytest.mark.parametrize("n_samples,spacing", [(12, 1.0), (16, 1.0),
+                                               (9, 0.66)])
+def test_descriptor_kernel_other_grids(dev, n_samples, spacing):
+    """Grids of 144 and 81 samples (lanes past the sample count hold
+    none) and another spacing (other cell lists)."""
+    args, kw = _desc_args("interior", 1000, dev, seed=2)
+    kw.update(n_samples=n_samples, spacing=spacing)
+    k = DESC.edge_descriptors_cuda(*args, **kw)
+    p = DESC.edge_descriptors_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_bf16_same(k, p)
+
+
+def test_edge_descriptors_dispatch_counts_one_launch(dev, monkeypatch):
+    args, kw = _desc_args("interior", 64, dev)
+    before = CB.LAUNCHES["edge_descriptors"]
+    k = DESC.edge_descriptors(*args, **kw)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["edge_descriptors"] == before + 1
+    _assert_bf16_same(k, DESC.edge_descriptors_plain(*args, **kw))
+
+    def no_build():
+        raise AssertionError("CPU tensors must not build or launch a kernel")
+
+    monkeypatch.setattr(CB, "lib", no_build)
+    DESC.edge_descriptors(*(a.cpu() for a in args), **kw)
+    assert CB.LAUNCHES["edge_descriptors"] == before + 1
+
+
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     seq = S.make_sequence(3, 120, 160)
     cfg = VOConfig(**SMALL)
@@ -499,6 +585,8 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert n_gpu["refine_2dof"] == 4
     # K4: once in each of the 3 stereo and 2 temporal steps
     assert n_gpu["cluster_edges"] == 5
+    # K5: left edges, right edges and mates in each of the 3 stereo steps
+    assert n_gpu["edge_descriptors"] == 9
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()

@@ -36,9 +36,12 @@ Phases (each passes or exits non-zero):
  6d. K5 (edge descriptors) vs its plain twin run on the card, bit for bit
      (bf16 bit patterns), on the operands of the three calls of frame 2's
      stereo step (left edges, right edges, final mates); each call timed
-     beside its bound (and its FMA-free bound) and the twin (phase 2
-     prints its registers and spills; `scripts/k5_variants.py` times the
-     launch alone and its parts);
+     beside its bound (and its FMA-free bound) and the twin; the built
+     kernel's registers, local memory, shared memory and warps an SM; K5
+     against the JAX package's outputs on every case of
+     tests/descriptor_cases.py (tests/data/k5_jax_reference.npz, within
+     1 bf16 ulp; `scripts/k5_variants.py` times the launch alone and its
+     parts);
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -819,17 +822,67 @@ def bf16_differ(a, b):
     return int(ne.sum()), float(ulps[fin].max()) if bool(fin.any()) else 0.0
 
 
+def bf16_ulps(a, b):
+    """Entries of two bf16 tensors that are NaN in one only, or that differ
+    by more than one bf16 ulp of max(|a|, |b|, 1) (the CPU tests' tolerance
+    against JAX), and the largest difference in those ulps."""
+    u, v = a.float(), b.float()
+    nan = u.isnan() | v.isnan()
+    mag = torch.clamp(torch.maximum(u.abs(), v.abs()), min=1.0)
+    ulps = torch.where(nan | (u == v), 0.0, (u - v).abs()
+                       / torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    bad = (u.isnan() != v.isnan()) | ~(ulps <= 1)
+    return int(bad.sum()), float(ulps.max()) if ulps.numel() else 0.0
+
+
+def k5_against_jax(dev):
+    """K5 on the card against the JAX package's outputs on every case of
+    `tests/descriptor_cases.py` at 64 edges (`tests/data/
+    k5_jax_reference.npz`): {case: (entries past 1 bf16 ulp or NaN in one
+    only, the largest difference in ulps)}."""
+    from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
+    from scripts import k5_jax_reference as KJ
+    from tests import descriptor_cases as DC
+
+    res = {}
+    with np.load(KJ.PATH) as refs:
+        for name in DC.CASES:
+            maps, edges, kw = DC.case(name, KJ.N_EDGES)
+            k = DESC.edge_descriptors_cuda(
+                *(torch.from_numpy(a).to(dev) for a in maps + edges), **kw)
+            ref = torch.from_numpy(refs[name].astype(np.int16)).view(
+                torch.bfloat16)
+            res[name] = bf16_ulps(k.cpu(), ref)
+    return res
+
+
 def phase_k5(desc_ops, card):
     """Phase 6d: K5 against its twin run on the card, bit for bit (bf16 bit
     patterns, a NaN equal to a NaN), on the operands of the three
     `edge_descriptors` calls of frame 2's stereo step (`desc_ops`: (args,
     kwargs) of each); each call timed with CUDA events beside its bound,
     and the twin timed. Returns the kernel's JSON entry, its times and
-    bound those of a stereo step's three calls."""
+    bound those of a stereo step's three calls. Also prints what the built
+    kernel is on the card (registers, spills, shared memory, warps an SM)
+    and holds it against the JAX package's outputs (`k5_against_jax`)."""
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 
     check(len(desc_ops) == 3, f"K5: {len(desc_ops)} calls of edge_descriptors "
                               f"recorded in frame 2's stereo step, not 3")
+    info = DESC.k5_info()
+    print(f"K5 build: {info['registers']} registers and {info['local_bytes']}"
+          f" B of local memory (stack) a thread, {info['shared_bytes']} B of "
+          f"shared memory a "
+          f"block of {info['warps_per_block']} warps, {info['blocks_per_sm']} "
+          f"blocks ({info['warps_per_sm']} warps) an SM [{card}]")
+    jax_cmp = k5_against_jax(desc_ops[0][0][0].device)
+    for name, (n_bad, ulps) in jax_cmp.items():
+        print(f"K5 against JAX's edge_descriptors_tiled, case {name} (64 "
+              f"edges): {n_bad} entries past 1 bf16 ulp, at most {ulps:.2f} "
+              f"ulp")
+        check(n_bad == 0, f"K5 case {name}: {n_bad} entries differ from "
+                          f"JAX's by more than 1 bf16 ulp")
+
     calls, err = {}, 0.0
     for name, (a, kw) in zip(("left edges", "right edges", "mates"),
                              desc_ops):
@@ -880,6 +933,7 @@ def phase_k5(desc_ops, card):
         replaces="edge_based_visual_odometry_tpu/ops/descriptors.py:114",
         max_abs_err=err, library_ms=None,
         plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        info=info, against_jax_max_ulps=max(u for _, u in jax_cmp.values()),
         **step)
 
 

@@ -33,6 +33,7 @@ from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
 from edge_based_visual_odometry_tpu_torch.models.types import (
     FrameData, StereoMates, resolve_device, rig_arrays_from_rig)
+from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed
 
@@ -71,8 +72,11 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
     float. A camera
     with non-zero distortion coefficients is undistorted on the device
     first. `has_gt`: the step takes the GT disparity map and the
-    non-occlusion mask and supervises the cascade with them."""
+    non-occlusion mask and supervises the cascade with them. On CUDA a
+    setting outside a kernel's range raises here (`check_kernel_ranges`)."""
     device = resolve_device(device)
+    if device.type == "cuda":
+        CB.check_kernel_ranges(cfg)
     rig_a = rig_arrays_from_rig(rig, device)
     gather_ry = SM.derive_gather_band(rig, cfg)
     dists = [torch.tensor(cam.distortion[:4], dtype=torch.float32,
@@ -121,8 +125,12 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
                         use_gt: bool = False):
     """fn(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t, seed) ->
     TemporalResult; rel_R/rel_t is the KF->CF pose used for quad
-    prediction (GT with `use_gt`, predicted in production)."""
-    rig_a = rig_arrays_from_rig(rig, resolve_device(device))
+    prediction (GT with `use_gt`, predicted in production). On CUDA a
+    setting outside a kernel's range raises here (`check_kernel_ranges`)."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        CB.check_kernel_ranges(cfg)
+    rig_a = rig_arrays_from_rig(rig, device)
 
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,
              seed) -> TemporalResult:

@@ -38,6 +38,7 @@ LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
 # K2's entry: images, H, W, lanes, B .. stride, tol, huber, outputs, stream
 _GN_ARGS = [_P] * 2 + [_I] * 2 + [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P] * 7
 # C entry point -> argtypes; each returns cudaError_t as int
@@ -54,11 +55,14 @@ _SIGNATURES = {
     # inv_sigma, cap, rounds, outputs, stream
     "cluster_edges_launch": ([_P] * 4 + [_I] * 2 + [_F, _I, _F, _F, _I, _I]
                              + [_P] * 7),
-    # K5: gx, gy, H, W, kx, ky, kt, ct, st, N, ii, jj, gauss, S, cell_idx,
-    # cell_w, L, tile, stride, two_pi, inv_two_pi, clip, scale, out, stream
-    "edge_descriptors_launch": ([_P] * 2 + [_I] * 2 + [_P] * 5 + [_I]
-                                + [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3
-                                + [_F] * 4 + [_P] * 2),
+    # K5: gx, gy, maps texture, surface, H, W, x, y, theta, N, shift, ii,
+    # jj, gauss, place, S, terms, lens, tile, stride, two_pi, inv_two_pi,
+    # clip, scale, out, stream
+    "edge_descriptors_launch": ([_P] * 2 + [_U] * 2 + [_I] * 2 + [_P] * 3
+                                + [_I, _F] + [_P] * 4 + [_I] + [_P] * 2
+                                + [_I] * 2 + [_F] * 4 + [_P] * 2),
+    "edge_descriptors_maps_create": [_I, _I, _P],
+    "edge_descriptors_info": [_P],
 }
 
 _lock = threading.Lock()
@@ -146,6 +150,40 @@ def lib() -> ctypes.CDLL:
                 fn.restype = _I
             _lib = handle
         return _lib
+
+
+def check_kernel_ranges(cfg):
+    """Raise ValueError, naming the field, where a `VOConfig` setting lies
+    outside what a hand-written kernel takes: K4's slots a row
+    (`max_candidates`, `max_quad_candidates`), K5's 4 x 4 cells x 8 bins
+    and at most 16 x 16 samples, K2's and K3's odd patch size with
+    2 P^2 <= 128. The wrappers refuse such settings at their launch; the
+    pipeline's step builders call this on CUDA so that they fail at
+    construction. The plain twins (the CPU) take them all."""
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+    from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    def refuse(field, why):
+        raise ValueError(f"VOConfig.{field} = {getattr(cfg, field)!r}: {why}")
+
+    for field in ("max_candidates", "max_quad_candidates"):
+        if getattr(cfg, field) > CL.MAX_SLOTS:
+            refuse(field, f"K4 (cluster_edges) takes at most {CL.MAX_SLOTS} "
+                          f"slots a row")
+    if cfg.desc_spatial_bins ** 2 != DESC.K5_CELLS:
+        refuse("desc_spatial_bins", "K5 (edge_descriptors) computes 4 x 4 "
+                                    "cells")
+    if cfg.desc_orient_bins != DESC.K5_ORIENT:
+        refuse("desc_orient_bins", f"K5 (edge_descriptors) computes "
+                                   f"{DESC.K5_ORIENT} orientation bins")
+    if cfg.desc_patch_samples ** 2 > DESC.MAX_SAMPLES:
+        refuse("desc_patch_samples", f"K5 (edge_descriptors) takes at most "
+                                     f"{DESC.MAX_SAMPLES} samples")
+    P = cfg.patch_size
+    if P % 2 == 0 or 2 * P * P > GN.MAX_PATCH_SAMPLES:
+        refuse("patch_size", f"K2 and K3 take odd sizes with 2*P*P <= "
+                             f"{GN.MAX_PATCH_SAMPLES}")
 
 
 def check(err: int, what: str):

@@ -19,12 +19,16 @@ arithmetic in K5's order, so the two agree bit for bit on the card:
   - the norms add the squares of lane l's bins q l .. q l + q - 1 in order
     (q = D / 32, 4 at 4 x 4 x 8), then over the 32 lanes by a butterfly
     (`_warp_norm`).
-Every value that does not depend on a sample (the keypoints, their cosine
-and sine, the static tables) is computed here, in PyTorch, for both.
+K5 adds only the terms that are not +0 (each sample's hat at its 2 bins,
+each cell's list without its padding, `_k5_terms`): every term is >= +0,
+so the sums keep every bit. The static tables are computed here, in
+PyTorch, for both; K5 forms the keypoints and their cosine and sine
+itself, with the arithmetic of `_keypoints`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -35,6 +39,9 @@ from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
 
 TWO_PI = 2.0 * math.pi
+# K5's 2 pi and the twin's multiply for `/ TWO_PI`: its float32 reciprocal
+_TWO_PI_F32 = float(np.float32(TWO_PI))
+_INV_TWO_PI_F32 = float(np.float32(1.0) / np.float32(TWO_PI))
 MAX_SAMPLES = 256     # K5 keeps a keypoint's samples in shared memory
 K5_CELLS, K5_ORIENT = 16, 8     # K5's histogram: 4 x 4 cells x 8 bins
 
@@ -79,6 +86,61 @@ def _cell_lists(n_samples, n_spatial, spacing, device):
     w = torch.where(keep, torch.gather(SP, 0, order),
                     torch.zeros((), device=device))
     return idx.to(torch.int32).contiguous(), w.contiguous()
+
+
+K5_COLOURS, K5_PER_COLOUR = 16, 17   # K5's record slots: colour = slot % 16
+
+
+def _bank_colours(idx, lens, S):
+    """A colour 0-15 for each of S samples, at most 17 samples a colour,
+    such that the samples the cells read at one term step (row j of
+    `idx` (L, cells) where j < lens) differ in colour where it can: K5
+    places sample s at a record slot of its colour, so that those reads
+    fall on distinct shared-memory banks. Greedy, the most constrained
+    sample first (DSATUR); deterministic."""
+    together = np.zeros((S, S), np.int64)
+    for j in range(idx.shape[0]):
+        c = np.unique(idx[j, lens > j])
+        together[np.ix_(c, c)] += 1
+    np.fill_diagonal(together, 0)
+    degree = (together > 0).sum(1)
+    colour = np.full(S, -1)
+    count = np.zeros(K5_COLOURS, np.int64)
+    clash = np.zeros((S, K5_COLOURS), np.int64)   # co-reads with colour k
+    for _ in range(S):
+        free = np.nonzero(colour < 0)[0]
+        saturation = (clash[free] > 0).sum(1)
+        s = free[np.lexsort((-degree[free], -saturation))[0]]
+        k = int(np.argmin(np.where(count < K5_PER_COLOUR, clash[s],
+                                   np.iinfo(np.int64).max)))
+        colour[s], count[k] = k, count[k] + 1
+        clash[:, k] += together[:, s]
+    return colour
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_terms(n_samples, n_spatial, spacing, device):
+    """K5's tables, from `_cell_lists` (the table as computed on
+    `device`): (terms (L, cells, 2) int32, term j of each cell {the
+    sample's place, the bits of its weight}; lens (cells,) int32, the
+    length of each cell's list without its padding; place (S,) int32).
+    A sample's place is its record slot 16 r + k (k its colour from
+    `_bank_colours`, r its rank among the samples of that colour) in the
+    low 16 bits and the byte of its o_lo, 4 (k + 16 (r // 4)) + r % 4, in
+    the high 16."""
+    idx, w = _cell_lists(n_samples, n_spatial, spacing, device)
+    lens = (w != 0).sum(0).to(torch.int32)
+    S = n_samples * n_samples
+    colour = _bank_colours(idx.cpu().numpy(), lens.cpu().numpy(), S)
+    rank = np.zeros(S, np.int64)
+    for k in range(K5_COLOURS):
+        mine = colour == k
+        rank[mine] = np.arange(int(mine.sum()))
+    slot = K5_COLOURS * rank + colour
+    byte = 4 * (colour + K5_COLOURS * (rank // 4)) + rank % 4
+    place = torch.from_numpy((slot | byte << 16).astype(np.int32)).to(device)
+    terms = torch.stack([place[idx.long()], w.view(torch.int32)], -1)
+    return terms.contiguous(), lens, place
 
 
 def _keypoints(x, y, theta, shift_mag):
@@ -150,6 +212,17 @@ def edge_descriptors_plain(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,
     return torch.cat([out[:N], out[N:]], 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _k5_maps(device_index, stream, H, W):
+    """The CUDA array of {gx, gy} pairs that K5's launches on `stream`
+    write and read (`edge_descriptors_maps_create`), made at the first
+    call of a shape and kept: (texture, surface) handles."""
+    buf = (ctypes.c_ulonglong * 3)()
+    CB.check(CB.lib().edge_descriptors_maps_create(H, W, buf),
+             "edge_descriptors_maps_create")
+    return buf[1], buf[2]
+
+
 def edge_descriptors_cuda(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,
                           n_samples: int = 16, n_spatial: int = 4,
                           n_orient: int = 8, spacing: float = 1.0,
@@ -158,7 +231,8 @@ def edge_descriptors_cuda(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,
     """The hand-written kernel (csrc/edge_descriptors.cu, K5): same
     contract as `edge_descriptors_plain`, for contiguous float32 CUDA
     tensors, 4 x 4 cells x 8 orientation bins and at most 16 x 16
-    samples; one launch, written straight into the (N, 256) output."""
+    samples; one launch (the {gx, gy} interleave into the map's CUDA
+    array, then the kernel), written straight into the (N, 256) output."""
     dev = x.device
     if not x.is_cuda:
         raise ValueError(f"edge_descriptors_cuda: needs CUDA tensors, got "
@@ -189,21 +263,32 @@ def edge_descriptors_cuda(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,
                       device=dev)
     if N == 0:
         return out
-    kx, ky, kt, ct, st = _keypoints(x, y, theta, shift_mag)
     ii, jj, gauss, _ = _static_tables(n_samples, n_spatial, spacing, dev)
-    idx, w = _cell_lists(n_samples, n_spatial, spacing, dev)
-    two_pi = np.float32(TWO_PI)
+    terms, lens, place = _k5_terms(n_samples, n_spatial, spacing, dev)
     with torch.cuda.device(dev):
+        stream = CB.stream_ptr(dev)
+        tex, surf = _k5_maps(dev.index, stream, H, W)
         err = CB.lib().edge_descriptors_launch(
-            gx_img.data_ptr(), gy_img.data_ptr(), H, W, kx.data_ptr(),
-            ky.data_ptr(), kt.data_ptr(), ct.data_ptr(), st.data_ptr(), N,
-            ii.data_ptr(), jj.data_ptr(), gauss.data_ptr(), S, idx.data_ptr(),
-            w.data_ptr(), idx.shape[0], tile, stride, float(two_pi),
-            float(np.float32(1.0) / two_pi), clip, scale, out.data_ptr(),
-            CB.stream_ptr(dev))
+            gx_img.data_ptr(), gy_img.data_ptr(), tex, surf, H, W,
+            x.data_ptr(), y.data_ptr(), theta.data_ptr(), N, shift_mag,
+            ii.data_ptr(), jj.data_ptr(), gauss.data_ptr(), place.data_ptr(),
+            S, terms.data_ptr(), lens.data_ptr(), tile, stride, _TWO_PI_F32,
+            _INV_TWO_PI_F32, clip, scale, out.data_ptr(), stream)
     CB.check(err, "edge_descriptors")
     CB.LAUNCHES["edge_descriptors"] += 1
     return out
+
+
+def k5_info():
+    """What the built K5 is on this card: warps a block, registers a
+    thread, local (spill) bytes a thread, static shared bytes a block,
+    blocks and warps an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    buf = (ctypes.c_int * 5)()
+    CB.check(CB.lib().edge_descriptors_info(ctypes.addressof(buf)),
+             "edge_descriptors_info")
+    return dict(warps_per_block=buf[0], registers=buf[1],
+                local_bytes=buf[2], shared_bytes=buf[3],
+                blocks_per_sm=buf[4], warps_per_sm=buf[0] * buf[4])
 
 
 def edge_descriptors(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,

@@ -38,6 +38,7 @@ from edge_based_visual_odometry_tpu_torch.ops import tiled_sampling as TS
 
 LEFT_TILE = 32     # the reference samples left/KF patches from a 32/8 atlas
 LEFT_STRIDE = 8
+MAX_PATCH_SAMPLES = 128   # K2 and K3 hold a lane's 2 P^2 samples in a warp
 
 
 class RefineResult(NamedTuple):
@@ -176,9 +177,10 @@ def _launch_gn(entry: str, img, maps, maps4, lanes, active, it0: int,
         raise ValueError(f"{entry}: needs CUDA tensors, got them on {dev}")
     H, W = img[1].shape
     B = lanes[0][1].shape[0]
-    if 2 * patch_size * patch_size > 128 or patch_size % 2 == 0:
+    if (2 * patch_size * patch_size > MAX_PATCH_SAMPLES
+            or patch_size % 2 == 0):
         raise ValueError(f"patch_size {patch_size}: the kernel takes odd "
-                         "sizes with 2*P*P <= 128")
+                         f"sizes with 2*P*P <= {MAX_PATCH_SAMPLES}")
     f32 = torch.float32
     for name, t in (img, *maps):
         CB.require(t, name, f32, (H, W), dev)
@@ -476,9 +478,10 @@ def refine_2dof_sides_cuda(kf_imgs, maps4, kpack, cpack, active,
     S, B = len(kf_imgs), kpack.shape[0]
     if S not in (1, 2):
         raise ValueError(f"refine_2dof_sides_cuda: {S} sides")
-    if 2 * patch_size * patch_size > 128 or patch_size % 2 == 0:
+    if (2 * patch_size * patch_size > MAX_PATCH_SAMPLES
+            or patch_size % 2 == 0):
         raise ValueError(f"patch_size {patch_size}: the kernel takes odd "
-                         "sizes with 2*P*P <= 128")
+                         f"sizes with 2*P*P <= {MAX_PATCH_SAMPLES}")
     f32 = torch.float32
     H, W = kf_imgs[0].shape
     for k, t in enumerate(kf_imgs):

@@ -8,7 +8,9 @@ import numpy as np
 
 H, W = 80, 120
 CASES = ("interior", "borders", "off_image", "axis_angles", "flat_windows",
-         "bin_edges", "padded_rows", "nonfinite")
+         "bin_edges", "padded_rows", "nonfinite", "bin_edge_overflow")
+# the cases whose descriptors hold NaN rows
+NAN_CASES = ("nonfinite", "bin_edge_overflow")
 KW = dict(shift_mag=8.0, n_samples=16, n_spatial=4, n_orient=8,
           spacing=0.66, clip=0.2, scale=512.0)
 
@@ -75,6 +77,15 @@ def case(name, N, seed=0):
         x = np.where(bad, vals, x)
         y = np.where(bad & (g.random(N) > 0.5), np.nan, y)
         th = np.where(np.arange(N) % 7 == 1, np.nan, th)
+    elif name == "bin_edge_overflow":
+        # theta 1e-8 under a gradient of angle 0: every finite sample's ob
+        # rounds to 8.0; beside them a block of gradients of 1e20, whose
+        # squared magnitude overflows: the samples that read it are not
+        # finite and make their keypoint's half NaN
+        gx = np.full((H, W), 300.0)
+        gy = np.zeros((H, W))
+        gx[36:44, 56:64] = 1e20
+        th = np.full(N, 1e-8)
     else:
         raise ValueError(f"no descriptor case {name!r}")
     f32 = np.float32

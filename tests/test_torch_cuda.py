@@ -22,6 +22,7 @@ from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
+from scripts import k5_jax_reference as KJ
 from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
 
@@ -527,10 +528,12 @@ def test_descriptor_kernel_matches_twin_bit_for_bit(dev, name):
     assert k.shape == (2048, 256)
 
 
+@pytest.mark.parametrize("name", DC.CASES)
 @pytest.mark.parametrize("N", [0, 1, 3, 4097])
-def test_descriptor_kernel_small_shapes(dev, N):
-    """No edge, one edge, and counts whose keypoints end inside a block."""
-    args, kw = _desc_args("borders", N, dev, seed=N)
+def test_descriptor_kernel_small_shapes(dev, N, name):
+    """No edge, one edge, and counts whose edges end inside a block, on
+    each case."""
+    args, kw = _desc_args(name, N, dev, seed=N)
     k = DESC.edge_descriptors_cuda(*args, **kw)
     p = DESC.edge_descriptors_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -538,17 +541,44 @@ def test_descriptor_kernel_small_shapes(dev, N):
     assert k.shape == (N, 256)
 
 
+@pytest.mark.parametrize("name", DC.CASES)
 @pytest.mark.parametrize("n_samples,spacing", [(12, 1.0), (16, 1.0),
                                                (9, 0.66)])
-def test_descriptor_kernel_other_grids(dev, n_samples, spacing):
+def test_descriptor_kernel_other_grids(dev, n_samples, spacing, name):
     """Grids of 144 and 81 samples (lanes past the sample count hold
-    none) and another spacing (other cell lists)."""
-    args, kw = _desc_args("interior", 1000, dev, seed=2)
+    none) and another spacing (other cell lists), on each case."""
+    args, kw = _desc_args(name, 1000, dev, seed=2)
     kw.update(n_samples=n_samples, spacing=spacing)
     k = DESC.edge_descriptors_cuda(*args, **kw)
     p = DESC.edge_descriptors_plain(*args, **kw)
     torch.cuda.synchronize()
     _assert_bf16_same(k, p)
+
+
+@pytest.mark.parametrize("name", DC.CASES)
+def test_descriptor_kernel_matches_jax_reference(dev, name):
+    """K5 on the card against the JAX package's `edge_descriptors_tiled`
+    on the case at 64 edges (`tests/data/k5_jax_reference.npz`, held
+    current by a CPU test), within the CPU test's 1 bf16 ulp of
+    max(|a|, |b|, 1), NaN where JAX has NaN. The card's spatial table
+    (729 nonzero weights) is not the CPU's (784)."""
+    args, kw = _desc_args(name, KJ.N_EDGES, dev)
+    k = DESC.edge_descriptors_cuda(*args, **kw).cpu()
+    with np.load(KJ.PATH) as refs:
+        ref = torch.from_numpy(refs[name].astype(np.int16)).view(
+            torch.bfloat16)
+    n_bad, ulps = C.bf16_ulps(k, ref)
+    assert n_bad == 0, f"{n_bad} entries past 1 bf16 ulp (at most {ulps})"
+
+
+def test_builders_refuse_out_of_range_settings(dev):
+    rig = S.make_sequence(1, 40, 60).rig
+    with pytest.raises(ValueError, match="VOConfig.max_candidates"):
+        PL.VOPipeline(rig, VOConfig(max_candidates=64), device=dev)
+    with pytest.raises(ValueError, match="VOConfig.desc_orient_bins"):
+        PL.build_stereo_step(rig, VOConfig(desc_orient_bins=4), dev)
+    with pytest.raises(ValueError, match="VOConfig.patch_size"):
+        PL.build_temporal_step(rig, VOConfig(patch_size=6), dev)
 
 
 def test_edge_descriptors_dispatch_counts_one_launch(dev, monkeypatch):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from edge_based_visual_odometry_tpu.ops import descriptors as JD
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as D
+from scripts import k5_jax_reference as KJ
 from tests import descriptor_cases as DC
 
 torch.set_num_threads(2)
@@ -50,7 +51,7 @@ def test_twin_matches_jax(name):
     _bf16_ulp_close(out, ref)
     if name == "flat_windows":
         assert np.all(out == 0)
-    elif name == "nonfinite":
+    elif name in DC.NAN_CASES:
         assert np.isnan(out).any(1).sum() > 0
     else:
         assert np.isfinite(out).all() and np.all(np.abs(out).max(1) > 0)
@@ -168,3 +169,145 @@ def test_cpu_dispatch_never_builds_and_the_wrapper_refuses_cpu(monkeypatch):
         D.edge_descriptors_cuda(*args, **kw)
     with pytest.raises(ValueError):
         D.edge_descriptors(*(a.to("meta") for a in args), **kw)
+
+
+@pytest.mark.parametrize("name", DC.CASES)
+def test_jax_reference_file_is_current(name):
+    """`tests/data/k5_jax_reference.npz`, which K5's output on the card is
+    held against where JAX is missing, equals `edge_descriptors_tiled` on
+    the case now, bit for bit."""
+    with np.load(KJ.PATH) as ref:
+        assert np.array_equal(ref[name], KJ.jax_bits(name))
+
+
+def _twin_hat(ob, mag):
+    """The twin's circular hat times the magnitude, (..., 8), as
+    `edge_descriptors_plain` computes it."""
+    orient = torch.arange(8, dtype=torch.float32)
+    dd = torch.abs(ob[..., None] - orient)
+    dd = torch.minimum(dd, 8 - dd)
+    return mag[..., None] * torch.clamp(1.0 - dd, min=0.0)
+
+
+def test_hat_is_nonzero_in_two_bins_only():
+    """K5 evaluates the hat at o_lo = floor(ob) mod 8 and o_lo + 1 mod 8
+    only. On the twin's expressions: for a finite magnitude the other 6
+    bins are +0 exactly, at every ob in [0, 8] (the integers and their
+    float32 neighbours, ob = 8.0, where bin 0 weighs 1 and bin 7 0, and
+    the largest ob the float32 2 pi reaches); for an infinite or NaN
+    magnitude, or a NaN ob, no bin is finite."""
+    g = np.random.default_rng(6)
+    ints = np.arange(9, dtype=np.float32)
+    top = np.float32(np.float32(2 * np.pi) * (np.float32(1) / np.float32(
+        2 * np.pi))) * np.float32(8)
+    ob = np.concatenate([
+        g.uniform(0, 8, 4096).astype(np.float32), ints,
+        np.nextafter(ints, np.float32(-1)), np.nextafter(ints, np.float32(9)),
+        [top]]).clip(0, max(8, top)).astype(np.float32)
+    ob, mag = torch.from_numpy(ob), torch.full((ob.size,), 300.0)
+    T = _twin_hat(ob, mag)
+    lo = torch.floor(ob).long() % 8
+    two = torch.zeros_like(T, dtype=torch.bool)
+    two[torch.arange(T.shape[0]), lo] = True
+    two[torch.arange(T.shape[0]), (lo + 1) % 8] = True
+    assert bool((T.view(torch.int32)[~two] == 0).all())
+    at8 = _twin_hat(torch.tensor([8.0]), torch.tensor([5.0]))[0]
+    assert at8[0] == 5.0 and at8[7].view(torch.int32) == 0
+    bad = _twin_hat(torch.tensor([3.3, 3.3, float("nan")]),
+                    torch.tensor([float("inf"), float("nan"), 1.0]))
+    assert not bool(bad.isfinite().any())
+
+
+@pytest.mark.parametrize("name", DC.NAN_CASES)
+def test_a_nonfinite_sample_makes_its_whole_half_nan(name):
+    """In the twin a half (a keypoint's 128 bins) is NaN in all its bins or
+    in none: a non-finite term reaches the norm. K5 adds the non-finite
+    samples' 2 terms and nothing of their other 6 bins, and gets the same
+    NaN halves."""
+    out = _twin(name, 64).float()
+    for half in (out[:, :128], out[:, 128:]):
+        nan = half.isnan()
+        assert torch.equal(nan.any(1), nan.all(1))
+    assert bool(out.isnan().any())
+
+
+def test_k5_terms_are_the_lists_without_their_padding():
+    """K5's tables (`_k5_terms`, on the CPU's table at VOConfig's spacing):
+    each cell's terms are its `_cell_lists` entries up to its length, the
+    sample's place beside the weight's bits; the lengths are the cells'
+    nonzero weights, 25 to 64, 784 in all. A place gives each sample a
+    record slot of its own (< 272, at most 17 a colour slot % 16) and an
+    o_lo byte of its own (< 320) in a word of the same bank colour; the
+    samples read at one term step differ in colour but for a few."""
+    terms, lens, place = D._k5_terms(16, 4, 0.66, CPU)
+    idx, w = D._cell_lists(16, 4, 0.66, CPU)
+    assert terms.dtype == lens.dtype == place.dtype == torch.int32
+    assert terms.shape == (64, 16, 2) and lens.shape == (16,)
+    assert lens.tolist() == [49, 56, 56, 35, 56, 64, 64, 40, 56, 64, 64, 40,
+                             35, 40, 40, 25]
+    for p in range(16):
+        n = int(lens[p])
+        assert torch.equal(terms[:n, p, 0], place[idx[:n, p].long()])
+        assert torch.equal(terms[:n, p, 1].view(torch.float32), w[:n, p])
+        assert bool((w[:n, p] > 0).all() and (w[n:, p] == 0).all())
+    slot, byte = (place & 0xffff).numpy(), (place >> 16).numpy()
+    assert len(set(slot)) == 256 and slot.max() < 272
+    assert np.bincount(slot % 16).max() <= 17
+    assert len(set(byte)) == 256 and byte.max() < 320
+    assert np.array_equal(byte // 4 % 16, slot % 16)
+    clashes = 0
+    for j in range(64):
+        read = np.unique(idx[j].numpy()[lens.numpy() > j])
+        clashes += len(read) - len(set(slot[read] % 16))
+    assert clashes <= 16
+
+
+def _k5_model(maps, edges, kw):
+    """K5's histogram on the CPU: the twin's samples, each kept as (o_lo,
+    T[s, o_lo], T[s, o_hi]), each cell's list walked to its own length
+    with 2 terms an entry; the rest as the twin."""
+    gx_img, gy_img, x, y, theta = (torch.from_numpy(a) for a in maps + edges)
+    n, nsp, sp = kw["n_samples"], kw["n_spatial"], kw["spacing"]
+    ii, jj, gauss, _ = D._static_tables(n, nsp, sp, CPU)
+    idx, w = D._cell_lists(n, nsp, sp, CPU)
+    lens = D._k5_terms(n, nsp, sp, CPU)[1]
+    kx, ky, kt, ct, st = D._keypoints(x, y, theta, kw["shift_mag"])
+    sx = kx[:, None] + ct[:, None] * ii - st[:, None] * jj
+    sy = ky[:, None] + st[:, None] * ii + ct[:, None] * jj
+    gx, gy = D.P.sample_around(torch.stack([gx_img, gy_img]), kx, ky, sx, sy,
+                               40, 8)
+    mag = torch.sqrt(gx * gx + gy * gy) * gauss
+    ang = torch.atan2(gy, gx) - kt[:, None]
+    ob = torch.remainder(ang, D.TWO_PI) / D.TWO_PI * 8
+    T = _twin_hat(ob, mag)
+    lo = torch.floor(ob).nan_to_num(0).long() % 8
+    hi = (lo + 1) % 8
+    t_lo, t_hi = T.gather(2, lo[..., None])[..., 0], T.gather(
+        2, hi[..., None])[..., 0]
+    desc = torch.zeros(T.shape[0], 16, 8)
+    for j in range(int(lens.max())):
+        live = j < lens
+        s = idx[j].long()
+        for o, t in ((lo[:, s], t_lo[:, s]), (hi[:, s], t_hi[:, s])):
+            cur = desc.gather(2, o[..., None])[..., 0]
+            desc.scatter_(2, o[..., None],
+                          torch.where(live, cur + w[j] * t, cur)[..., None])
+    desc = desc.reshape(-1, 128)
+    desc = desc / torch.clamp(D._warp_norm(desc), min=1e-7)
+    desc = torch.clamp(desc, max=kw["clip"])
+    out = (desc / torch.clamp(D._warp_norm(desc), min=1e-7)
+           * kw["scale"]).to(torch.bfloat16)
+    N = x.shape[0]
+    return torch.cat([out[:N], out[N:]], 1)
+
+
+@pytest.mark.parametrize("name", DC.CASES)
+def test_k5_histogram_over_nonzero_terms_equals_the_twin(name):
+    """K5's work, modelled on the CPU (`_k5_model`), equals the twin's bf16
+    bits on every case (a NaN equal to a NaN): the 6 zero bins of each hat
+    and the lists' padding may be left out."""
+    maps, edges, kw = DC.case(name, 64)
+    a, b = _k5_model(maps, edges, kw), _twin(name, 64)
+    same = (a.view(torch.int16) == b.view(torch.int16)) | (a.isnan()
+                                                            & b.isnan())
+    assert bool(same.all())

@@ -31,8 +31,13 @@ Phases (each passes or exits non-zero):
      deltas timed; registers, spills and warps an SM;
  6c. K4 (edge clustering) vs its plain twin run on the card, bit for bit,
      on the operands frame 2's stereo and temporal steps gave
-     `cluster_edges`; each call timed beside its bound and the twin
-     (phase 2 prints its registers and spills);
+     `cluster_edges`; each call timed beside its bound and the twin, with
+     its rows counted by active slots (0, 1-8, 9+) and the rows whose
+     sums add every slot (a non-finite or huge value); K4 against the JAX
+     package's outputs on every case of tests/cluster_cases.py
+     (tests/data/k4_jax_reference.npz, within K4_JAX_ULPS; phase 2 prints
+     its registers and spills; `scripts/k4_variants.py` times other
+     forms of it);
  6d. K5 (edge descriptors) vs its plain twin run on the card, bit for bit
      (bf16 bit patterns), on the operands of the three calls of frame 2's
      stereo step (left edges, right edges, final mates); each call timed
@@ -154,15 +159,17 @@ K3_ITER_FLOPS = 28
 K3_LANE_IN_BYTES = 6 * 4 + 2 * 4 + 1    # kx ky kt cx cy ct, d0, active
 K3_LANE_OUT_BYTES = 4 * 4 + 1 + 4 + 1   # d score conf, valid, iters, done
 
-# K4 (csrc/cluster_edges.cu), counted from the O(N C^2) form it computes
-# (compares, selects and the integer label steps not counted): per slot
-# pair the adjacency distance (2 sub, 2 mul, add, sqrt), and 1 sub more
-# with the orientation gate; with the cap, per pair the centroid sums (2
-# mul, 2 add) and per slot 2 divisions and its distance to the centroid
-# (6); for the representative, per pair the centroid sums (4), the
-# distance (6), the mean-shift sum (2), the weight (sub, 2 mul for z and
-# z^2, mul by -0.5, exp, mul by the membership: 6), its sum (1) and the
-# three weighted sums (6), and per slot 6 divisions.
+# K4 (csrc/cluster_edges.cu), counted over each row's pairs of active
+# slots (the sum of n_r^2) and its active slots: a term of a masked slot
+# is an exact zero (compares, selects and the integer label steps not
+# counted). Per pair the adjacency distance (2 sub, 2 mul, add, sqrt), and
+# 1 sub more with the orientation gate; with the cap, per pair the
+# centroid sums (2 mul, 2 add) and per slot 2 divisions and its distance
+# to the centroid (6); for the representative, per pair the centroid sums
+# (4), the distance (6), the mean-shift sum (2), the weight (sub, 2 mul
+# for z and z^2, mul by -0.5, exp, mul by the membership: 6), its sum (1)
+# and the three weighted sums (6), and per slot 6 divisions. Bytes: every
+# slot read and every output written, whatever the mask.
 K4_PAIR_FLOPS = 6
 K4_ORIENT_PAIR_FLOPS = 1
 K4_CAP_PAIR_FLOPS = 4
@@ -230,16 +237,21 @@ def k3_work(iters_run, active, patch_size, H, W):
     return flops, nbytes
 
 
-def k4_work(N, C, by_orientation, max_cluster_size):
-    """(flops, bytes) of one K4 launch over (N, C) slots; the (N, C, C)
-    membership matrix is one byte an entry."""
-    pairs, slots = N * C * C, N * C
+def k4_work(mask, by_orientation, max_cluster_size):
+    """(flops, bytes) of one K4 launch over the (N, C) slots of `mask`
+    (a numpy array or a tensor): flops over each row's active slots and
+    their pairs, bytes over every slot (each read, each output written);
+    the (N, C, C) membership matrix is one byte an entry."""
+    mask = np.asarray(mask.cpu() if isinstance(mask, torch.Tensor) else mask)
+    N, C = mask.shape
+    n = mask.sum(1, dtype=np.int64)
+    pairs, active = int((n * n).sum()), int(n.sum())
     cap = bool(max_cluster_size) and max_cluster_size < C
     flops = (pairs * (K4_PAIR_FLOPS + K4_REP_PAIR_FLOPS
                       + K4_ORIENT_PAIR_FLOPS * bool(by_orientation)
                       + K4_CAP_PAIR_FLOPS * cap)
-             + slots * (K4_REP_SLOT_FLOPS + K4_CAP_SLOT_FLOPS * cap))
-    return flops, slots * (K4_SLOT_IN_BYTES + K4_SLOT_OUT_BYTES) + pairs
+             + active * (K4_REP_SLOT_FLOPS + K4_CAP_SLOT_FLOPS * cap))
+    return flops, N * C * (K4_SLOT_IN_BYTES + K4_SLOT_OUT_BYTES + C)
 
 
 def k5_work(K, S, nonzero, H, W):
@@ -253,6 +265,14 @@ def k5_work(K, S, nonzero, H, W):
                                    + K5_KEYPOINT_OUT_BYTES)
               + 3 * S * 4 + nonzero * 8)
     return flops, nbytes
+
+
+# K4 against the JAX package's outputs: x, y and theta within this many
+# float32 ulps of max(|a|, |b|, 1). The twin (and K4) adds in ascending
+# slot order, XLA's dots in their own order, and the card's expf may
+# differ from the CPU's vectorised exp in the last bit; the twin on the
+# CPU is within 7 of JAX on every case.
+K4_JAX_ULPS = 16
 
 
 def fail(msg):
@@ -321,6 +341,47 @@ def same_cluster(a, b, what):
         if bool(fin.any()):
             err = max(err, float((u - v).abs()[fin].max()))
     return err
+
+
+def f32_ulps(a, b):
+    """The largest difference of two float32 arrays in ulps of
+    max(|a|, |b|, 1) (0 where both are NaN), and the entries that are NaN
+    in one only."""
+    u, v = (np.asarray(t, np.float32).astype(np.float64) for t in (a, b))
+    nan = np.isnan(u) | np.isnan(v)
+    mag = np.maximum(np.maximum(np.abs(np.where(nan, 0, u)),
+                                np.abs(np.where(nan, 0, v))), 1.0)
+    with np.errstate(invalid="ignore"):
+        d = np.where(nan | (u == v), 0.0, np.abs(u - v)
+                     / np.exp2(np.floor(np.log2(mag)) - 23))
+    return (float(d.max()) if d.size else 0.0,
+            int((np.isnan(u) != np.isnan(v)).sum()))
+
+
+def k4_against_jax(dev):
+    """K4 on the card against the JAX package's outputs on every case of
+    `tests/cluster_cases.py` at 64 rows of 32 slots (`tests/data/
+    k4_jax_reference.npz`): {case: (label, mask and members entries that
+    differ, entries NaN in one only, the largest x / y / theta difference
+    in ulps)}."""
+    from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+    from scripts import k4_jax_reference as KJ
+    from tests import cluster_cases as CC
+
+    res = {}
+    with np.load(KJ.PATH) as refs:
+        for name in CC.CASES:
+            x, y, th, mask, kw = KJ.inputs(name)
+            k = CL.cluster_edges_cuda(
+                *(torch.from_numpy(a).to(dev) for a in (x, y, th, mask)), **kw)
+            ref = {f: refs[KJ.key(name, f)] for f in KJ.FIELDS}
+            n_bad = sum(int((getattr(k, f).cpu().numpy() != ref[f]).sum())
+                        for f in ("label", "mask", "members"))
+            errs = [f32_ulps(getattr(k, f).cpu().numpy(), ref[f])
+                    for f in ("x", "y", "theta")]
+            res[name] = (n_bad, sum(e[1] for e in errs),
+                         max(e[0] for e in errs))
+    return res
 
 
 def recorder(fn, imgs, gn_kw, calls, **extra):
@@ -767,8 +828,10 @@ def phase_k4(cl_ops, card):
     """Phase 6c: K4 against its twin run on the card, bit for bit, on the
     operands frame 2's stereo and temporal steps gave `cluster_edges`
     (`cl_ops`: kind -> (args, kwargs)); each call timed with CUDA events
-    beside its bound, and the twin timed. Returns the kernel's JSON entry,
-    its times and bound those of a frame's two calls."""
+    beside its bound, and the twin timed; its rows counted by active
+    slots and by the sums' path. Also holds K4 against the JAX package's
+    outputs (`k4_against_jax`). Returns the kernel's JSON entry, its times
+    and bound those of a frame's two calls."""
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 
     calls, err = {}, 0.0
@@ -781,15 +844,25 @@ def phase_k4(cl_ops, card):
         torch.cuda.synchronize()
         err = max(err, same_cluster(k, p, f"K4 {kind} call ({N} x {C})"))
         row = with_bound(cuda_ms(lambda: CL.cluster_edges_cuda(*a, **kw), 50),
-                         *k4_work(N, C, kw["by_orientation"],
+                         *k4_work(a[3], kw["by_orientation"],
                                   kw["max_cluster_size"]))
+        n = a[3].sum(1)
+        ok = ((a[0].abs() <= 2.0 ** 62) & (a[1].abs() <= 2.0 ** 62)
+              & a[2].isfinite()).all(1)
         row.update(plain_ms=cuda_ms(lambda: CL.cluster_edges_plain(*a, **kw),
                                     3),
-                   rows=N, slots=C, active=int(a[3].sum()),
-                   clusters=int(k.mask.sum()))
+                   rows=N, slots=C, active=int(n.sum()),
+                   clusters=int(k.mask.sum()),
+                   rows_by_active={"0": int((n == 0).sum()),
+                                   "1-8": int(((n > 0) & (n <= 8)).sum()),
+                                   "9+": int((n > 8).sum())},
+                   rows_every_slot=int((~ok).sum()))
         calls[kind] = row
         print(f"K4 cluster_edges, {kind} call ({N} x {C}, "
-              f"{row['active']} active slots, {row['clusters']} clusters, "
+              f"{row['active']} active slots, rows with 0 / 1-8 / 9+ active "
+              f"slots {' / '.join(map(str, row['rows_by_active'].values()))}"
+              f", {row['rows_every_slot']} rows whose sums add every slot, "
+              f"{row['clusters']} clusters, "
               f"orientation gate {kw['by_orientation']}, cap "
               f"{kw['max_cluster_size']}): bit-equal to its twin on the card "
               f"(label, mask, members, x, y, theta); kernel {row['ms']:.4f} "
@@ -797,6 +870,14 @@ def phase_k4(cl_ops, card):
               f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}: "
               f"{row['flops']} flop, {row['bytes']} B), "
               f"{row['pct_of_bound']:.1f}% of it [{card}]")
+    jax_cmp = k4_against_jax(a[0].device)
+    for name, (n_bad, n_nan, ulps) in jax_cmp.items():
+        print(f"K4 against JAX's cluster_edges, case {name} (64 x 32): "
+              f"label / mask / members differ at {n_bad} entries, NaN in "
+              f"one only at {n_nan}, x / y / theta at most {ulps:.1f} ulp")
+        check(n_bad == 0 and n_nan == 0 and ulps <= K4_JAX_ULPS,
+              f"K4 case {name}: {n_bad} label / mask / members entries and "
+              f"{n_nan} NaN differ from JAX's, or {ulps} ulp > {K4_JAX_ULPS}")
     frame = with_bound(sum(r["ms"] for r in calls.values()),
                        sum(r["flops"] for r in calls.values()),
                        sum(r["bytes"] for r in calls.values()))
@@ -806,7 +887,7 @@ def phase_k4(cl_ops, card):
         replaces="edge_based_visual_odometry_tpu/ops/clustering.py:42",
         max_abs_err=err, library_ms=None,
         plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
-        **frame)
+        against_jax_max_ulps=max(u for _, _, u in jax_cmp.values()), **frame)
 
 
 def bf16_differ(a, b):
@@ -1781,7 +1862,7 @@ def main():
             "values_not_bit_equal", "forms", "launches_by_path",
             "step_launches_ms", "glue_ms", "pair_batch_ms",
             "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
-            "calls")}
+            "against_jax_max_ulps", "calls")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,22 @@
 """Vectorized agglomerative edge clustering.
 
 Port of `edge_based_visual_odometry_tpu/ops/clustering.py::cluster_edges`:
-connected components of the thresholded pairwise-distance graph by
-min-label propagation with pointer jumping, the centroid-ranked
-MAX_CLUSTER_SIZE cap (members beyond the cap nearest the component
-centroid revert to singletons), and the Gaussian-weighted cluster
-representative.
+label groups of the thresholded pairwise-distance graph by JAX's
+`_rounds(C)` rounds of min-label propagation with pointer jumping (the
+connected components where no component has more than 8 members; a
+longer chain can end them in more than one label, and the port keeps
+JAX's result), the centroid-ranked MAX_CLUSTER_SIZE cap (members beyond
+the cap nearest the group's centroid revert to singletons), and the
+Gaussian-weighted cluster representative.
 
 `cluster_edges` runs, on CUDA tensors, the hand-written kernel
 `csrc/cluster_edges.cu` (K4, `cluster_edges_cuda`), and on CPU tensors its
 plain twin `cluster_edges_plain`, which processes rows in chunks to bound
 the (rows, C, C, C) rank comparison (chunking never changes results). The
-twin sums over slots in ascending order, one term after another, as a
-lane of the kernel does, so the two agree bit for bit on the card.
+twin sums over slots in ascending order, one term after another; the
+kernel adds the same terms in that order, those of masked slots only
+where they can change a bit (csrc/cluster_edges.cu says when), so the
+two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 
-MAX_SLOTS = 32        # K4 holds a row's slots in one warp
+MAX_SLOTS = 64        # K4 holds a row's slots in one warp, two a lane
 
 
 class ClusterResult(NamedTuple):
@@ -51,7 +55,8 @@ def _scalars(dist_thresh, orient_thresh_deg, gauss_sigma):
 
 
 def _rounds(C: int) -> int:
-    # reach after k rounds: d_{k+1} = 2 (d_k + 1)
+    # JAX's count: it reaches every member of a group of at most 8
+    # members (diameter <= 7), not always the far end of a longer chain
     return max(1, int(math.ceil(math.log2(max(C, 2)))) + 2)
 
 
@@ -153,7 +158,7 @@ def cluster_edges_cuda(x, y, theta, mask, dist_thresh: float = 1.0,
                        by_orientation: bool = True, gauss_sigma: float = 2.0,
                        max_cluster_size: int = 0) -> ClusterResult:
     """The hand-written kernel (csrc/cluster_edges.cu, K4): same contract
-    as `cluster_edges_plain`, for contiguous float32 (N, C <= 32) CUDA
+    as `cluster_edges_plain`, for contiguous float32 (N, C <= 64) CUDA
     tensors and a bool mask; one launch."""
     dev = x.device
     if not x.is_cuda:

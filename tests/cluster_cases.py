@@ -6,7 +6,7 @@ a bool mask (N, C) and the keyword arguments."""
 import numpy as np
 
 CASES = ("clumps", "clumps_oriented", "all_masked_rows", "big_component",
-         "distance_ties", "nonfinite_masked")
+         "distance_ties", "nonfinite_masked", "long_chains", "signed_zeros")
 
 
 def _clumps(g, N, C, spread=0.6):
@@ -29,6 +29,47 @@ def _lattice_row(g, C):
     y = np.concatenate([cy + oy, 100 + 3.0 * np.arange(C - 25)])
     p = g.permutation(C)
     return x[p], y[p]
+
+
+def _chain_row(g, C):
+    """One chain of 9-24 slots about 0.9 px apart (gaps 0.85-0.95, so no
+    two members tie in their distance to a centroid) along a random
+    direction, in shuffled slots; the other slots lie far apart, about
+    half of them masked. The chain is a path of the distance graph, and
+    the label rounds end before they reach its far end."""
+    L = int(g.integers(9, 25))
+    a = g.uniform(0, np.pi)
+    s = np.concatenate([[0.0], np.cumsum(g.uniform(0.85, 0.95, L - 1))])
+    x0, y0 = g.uniform(0, 50, 2)
+    x = np.concatenate([x0 + s * np.cos(a), 100 + 3.0 * np.arange(C - L)])
+    y = np.concatenate([y0 + s * np.sin(a), 100 + 3.0 * np.arange(C - L)])
+    mask = np.concatenate([np.ones(L, bool), g.random(C - L) > 0.5])
+    p = g.permutation(C)
+    return x[p], y[p], mask[p]
+
+
+def _signed_zeros(g, N, C):
+    """Clumps at negative x, y and theta, and in shuffled slots a group of
+    4 members at x = y = theta = -0.0. Then, by row: (0) nothing else; (1)
+    a masked slot holds +0.0 in x, y and theta; (2) the group's x
+    alternate 0.0 and -0.0; (3) an active slot of a clump holds theta
+    +0.0. Where every term of a sum is -0 the twin's sum is -0, else +0."""
+    x, y, th, mask = _clumps(g, N, C)
+    x, y, th = -np.abs(x) - 10, -np.abs(y) - 10, -np.abs(th) - 0.01
+    for i in range(N):
+        z, other = np.split(g.permutation(C), [4])
+        x[i, z] = y[i, z] = th[i, z] = -0.0
+        mask[i, z] = True
+        kind = i % 4
+        if kind == 1:
+            mask[i, other[0]] = False
+            x[i, other[0]] = y[i, other[0]] = th[i, other[0]] = 0.0
+        elif kind == 2:
+            x[i, z[::2]] = 0.0
+        elif kind == 3:
+            mask[i, other[0]] = True
+            th[i, other[0]] = 0.0
+    return x, y, th, mask
 
 
 def case(name, N, C, seed=0):
@@ -62,6 +103,16 @@ def case(name, N, C, seed=0):
         x = np.where(bad, vals, x)
         y = np.where(bad & (g.random((N, C)) > 0.5), np.nan, y)
         th = np.where(bad & (g.random((N, C)) > 0.5), np.inf, th)
+        kw["by_orientation"] = True
+    elif name == "long_chains":
+        if C < 24:
+            raise ValueError("a chain takes up to 24 slots a row")
+        rows = [_chain_row(g, C) for _ in range(N)]
+        x, y, mask = (np.stack([r[k] for r in rows]) if rows
+                      else np.zeros((0, C)) for k in range(3))
+        th = g.uniform(-1, 1, (N, C))
+    elif name == "signed_zeros":
+        x, y, th, mask = _signed_zeros(g, N, C)
         kw["by_orientation"] = True
     else:
         raise ValueError(f"no clustering case {name!r}")

@@ -1,10 +1,12 @@
 """The bound arithmetic chip_smoke.py reports beside each kernel's time:
-work counted from the shapes (K1) and from the iterations a launch ran
-(K2, K3), and the least time the card needs for it. chip_smoke.py imports
+work counted from the shapes (K1), from the iterations a launch ran
+(K2, K3) and from the active slots (K4), and the least time the card
+needs for it. chip_smoke.py imports
 without CUDA; only its main() needs the card."""
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as C
 
@@ -84,27 +86,34 @@ def test_k3_work_at_production_scale_is_flop_bound():
 
 
 def test_k4_work_from_a_hand_made_shape():
-    """Two rows of 4 slots, cap 10 >= C (no cap), no orientation gate: 32
-    slot pairs x (6 + 25) flops, 8 slots x 6 divisions; 34 bytes a slot
-    and one membership byte a pair."""
-    assert C.k4_work(2, 4, False, 10) == (32 * 31 + 8 * 6, 8 * 34 + 32)
+    """Two rows of 4 slots, 3 and 1 of them active, cap 10 >= C (no cap),
+    no orientation gate: 3^2 + 1^2 = 10 pairs of active slots x (6 + 25)
+    flops, 4 active slots x 6 divisions; 34 bytes a slot and one
+    membership byte a pair of slots, active or not."""
+    m = np.array([[1, 1, 0, 1], [0, 0, 1, 0]], bool)
+    assert C.k4_work(m, False, 10) == (10 * 31 + 4 * 6, 8 * 34 + 32)
     # the gate adds 1 flop a pair; the cap 4 a pair and 8 a slot
-    assert C.k4_work(2, 4, True, 3) == (32 * 36 + 8 * 14, 8 * 34 + 32)
-    assert C.k4_work(0, 32, True, 10) == (0, 0)
+    assert C.k4_work(m, True, 3) == (10 * 36 + 4 * 14, 8 * 34 + 32)
+    assert C.k4_work(torch.from_numpy(m), True, 3) == C.k4_work(m, True, 3)
+    assert C.k4_work(np.zeros((0, 32), bool), True, 10) == (0, 0)
 
 
 @pytest.mark.parametrize("N,orient,flops,nbytes,us", [
-    (32_768, False, 1_189_085_184, 69_206_016, 20.6585),   # stereo call
-    (24_576, True, 916_979_712, 51_904_512, 15.4939)])     # temporal call
+    (32_768, False, 21_676_032, 69_206_016, 20.6585),    # stereo call
+    (24_576, True, 16_687_104, 51_904_512, 15.4939)])    # temporal call
 def test_k4_work_at_production_shape(N, orient, flops, nbytes, us):
-    """`VOConfig()`: 32 slots a row, cap 10. 13 bytes in and 21 out a slot
-    and a 1 KiB membership matrix a row: bytes bound both calls, just
-    above the flops of the O(N C^2) form."""
-    assert C.k4_work(N, 32, orient, 10) == (flops, nbytes)
+    """`VOConfig()`: 32 slots a row, cap 10, row r holding r % 8 active
+    slots (3.5 a row, as on the main path's frame). 13 bytes in and 21
+    out a slot and a 1 KiB membership matrix a row: bytes bound both
+    calls, the active pairs' flops take under 2% of their time."""
+    mask = np.arange(32)[None, :] < (np.arange(N) % 8)[:, None]
+    pairs, active = N // 8 * 140, N // 8 * 28
+    assert C.k4_work(mask, orient, 10) == (flops, nbytes)
+    assert flops == pairs * (35 + orient) + active * 14
     b = C.bound(flops, nbytes)
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
-    assert flops / C.PEAK_FLOPS > 0.85 * nbytes / C.PEAK_BYTES
+    assert flops / C.PEAK_FLOPS < 0.02 * nbytes / C.PEAK_BYTES
 
 
 def test_bound_takes_the_larger_time():

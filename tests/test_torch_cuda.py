@@ -22,6 +22,7 @@ from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
+from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
 from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
@@ -408,7 +409,7 @@ def test_wrappers_validate_operands(dev):
         GN.refine_2dof_sides_cuda(kfs, m4[..., :3], pack, pack, act)
     with pytest.raises(ValueError):
         GN.refine_2dof_sides_cuda(kfs * 2, m4, pack, pack, act)
-    # K4: float32 (N, C <= 32) contiguous coordinates, a bool mask
+    # K4: float32 (N, C <= 64) contiguous coordinates, a bool mask
     xy = torch.zeros(8, 32, device=dev)
     m = torch.ones(8, 32, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
@@ -419,7 +420,7 @@ def test_wrappers_validate_operands(dev):
         CL.cluster_edges_cuda(xy, xy.t().contiguous().t(), xy, m)
     with pytest.raises(ValueError):
         CL.cluster_edges_cuda(xy, xy, xy, m[:4])
-    big = torch.zeros(8, 33, device=dev)
+    big = torch.zeros(8, 65, device=dev)
     with pytest.raises(ValueError):
         CL.cluster_edges_cuda(big, big, big, torch.ones_like(big).bool())
     # K5: float32 contiguous (H, W) maps and (N,) edges, 4 x 4 x 8 bins,
@@ -476,15 +477,61 @@ def test_cluster_kernel_matches_twin_bit_for_bit(dev, name):
 
 @pytest.mark.parametrize("N,C,cap", [(4096, 16, 10), (1, 32, 10), (0, 32, 10),
                                      (1, 16, 4), (0, 16, 4), (300, 8, 3),
-                                     (500, 32, 0), (500, 25, 10)])
+                                     (500, 32, 0), (500, 25, 10),
+                                     (1, 64, 10), (0, 64, 10), (300, 40, 3),
+                                     (500, 33, 0)])
 def test_cluster_kernel_small_shapes(dev, N, C, cap):
-    """C < 32 (lanes past C hold no slot), one row, no row, no cap."""
+    """C < 32 (lanes past C hold no slot), two slots a lane (C > 32), one
+    row, no row, no cap."""
     args, kw = _cluster_args("clumps_oriented", N, C, dev, seed=N + C,
                              max_cluster_size=cap)
     k = CL.cluster_edges_cuda(*args, **kw)
     p = CL.cluster_edges_plain(*args, **kw)
     torch.cuda.synchronize()
     _assert_cluster_same(k, p)
+
+
+def test_cluster_kernel_relabels_groups_that_fit_the_cap(dev):
+    """`long_chains` with a cap of 24 that every chain fits: no rank is
+    formed, yet where the label rounds stopped short the relabel to a
+    group's least index moves labels (tests/test_torch_clustering.py)."""
+    args, kw = _cluster_args("long_chains", 4096, 32, dev, seed=1,
+                             max_cluster_size=24)
+    k = CL.cluster_edges_cuda(*args, **kw)
+    p = CL.cluster_edges_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_cluster_same(k, p)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+@pytest.mark.parametrize("slots", [48, 64])
+def test_cluster_kernel_wide_rows(dev, slots, name):
+    """Two slots a lane: K4 against the twin on the card at 1,024 rows of
+    48 and 64 slots (8 label rounds at 64), cap 10."""
+    args, kw = _cluster_args(name, 1024, slots, dev, seed=slots)
+    k = CL.cluster_edges_cuda(*args, **kw)
+    p = CL.cluster_edges_plain(*args, **kw, chunk=256)
+    torch.cuda.synchronize()
+    _assert_cluster_same(k, p)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_cluster_kernel_matches_jax_reference(dev, name):
+    """K4 on the card against the JAX package's `cluster_edges` on the case
+    at 64 rows of 32 slots (`tests/data/k4_jax_reference.npz`, held
+    current by a CPU test): label, mask and members equal, x / y / theta
+    within `chip_smoke.K4_JAX_ULPS` ulps of max(|a|, |b|, 1) (the sums'
+    order and exp's last bit), NaN where JAX has NaN."""
+    x, y, th, mask, kw = K4J.inputs(name)
+    k = CL.cluster_edges_cuda(
+        *(torch.from_numpy(a).to(dev) for a in (x, y, th, mask)), **kw)
+    with np.load(K4J.PATH) as refs:
+        ref = {f: refs[K4J.key(name, f)] for f in K4J.FIELDS}
+    for f in ("label", "mask", "members"):
+        np.testing.assert_array_equal(getattr(k, f).cpu().numpy(), ref[f])
+    for f in ("x", "y", "theta"):
+        ulps, n_nan = C.f32_ulps(getattr(k, f).cpu().numpy(), ref[f])
+        assert n_nan == 0 and ulps <= C.K4_JAX_ULPS, (f, ulps, n_nan)
 
 
 def test_cluster_edges_dispatch_counts_one_launch(dev, monkeypatch):
@@ -574,7 +621,7 @@ def test_descriptor_kernel_matches_jax_reference(dev, name):
 def test_builders_refuse_out_of_range_settings(dev):
     rig = S.make_sequence(1, 40, 60).rig
     with pytest.raises(ValueError, match="VOConfig.max_candidates"):
-        PL.VOPipeline(rig, VOConfig(max_candidates=64), device=dev)
+        PL.VOPipeline(rig, VOConfig(max_candidates=65), device=dev)
     with pytest.raises(ValueError, match="VOConfig.desc_orient_bins"):
         PL.build_stereo_step(rig, VOConfig(desc_orient_bins=4), dev)
     with pytest.raises(ValueError, match="VOConfig.patch_size"):

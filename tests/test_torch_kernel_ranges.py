@@ -12,7 +12,7 @@ from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 
-OUT_OF_RANGE = [("max_candidates", 33), ("max_quad_candidates", 64),
+OUT_OF_RANGE = [("max_candidates", 65), ("max_quad_candidates", 96),
                 ("desc_spatial_bins", 3), ("desc_orient_bins", 16),
                 ("desc_patch_samples", 17), ("patch_size", 8),
                 ("patch_size", 9)]
@@ -26,8 +26,9 @@ def test_out_of_range_setting_names_its_field(field, value):
 
 def test_default_config_is_in_range():
     CB.check_kernel_ranges(VOConfig())
-    CB.check_kernel_ranges(VOConfig(max_candidates=32, patch_size=7,
+    CB.check_kernel_ranges(VOConfig(max_candidates=64, patch_size=7,
                                     desc_patch_samples=12))
+    CB.check_kernel_ranges(VOConfig(max_quad_candidates=64))
 
 
 @pytest.fixture(scope="module")
@@ -49,9 +50,9 @@ def test_builders_refuse_out_of_range_settings_on_cuda(rig, builder,
     device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="VOConfig.max_quad_candidates"):
-        BUILDERS[builder](rig, VOConfig(max_quad_candidates=48), "cuda")
+        BUILDERS[builder](rig, VOConfig(max_quad_candidates=65), "cuda")
 
 
 @pytest.mark.parametrize("builder", BUILDERS)
 def test_builders_take_any_setting_on_the_cpu(rig, builder):
-    BUILDERS[builder](rig, VOConfig(max_candidates=48, patch_size=9), "cpu")
+    BUILDERS[builder](rig, VOConfig(max_candidates=80, patch_size=9), "cpu")

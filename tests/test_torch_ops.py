@@ -11,6 +11,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import chip_smoke
 from edge_based_visual_odometry_tpu.io import synthetic as JS
 from edge_based_visual_odometry_tpu.models import stereo_matcher as JSM
 from edge_based_visual_odometry_tpu.ops import clustering as JCL
@@ -25,6 +26,7 @@ from edge_based_visual_odometry_tpu_torch.ops import descriptors as D
 from edge_based_visual_odometry_tpu_torch.ops import grid as G
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
+from scripts import k4_jax_reference as K4J
 from tests import cluster_cases as CC
 
 pytestmark = pytest.mark.heavy
@@ -200,13 +202,8 @@ def test_cluster_edges_matches(by_orientation):
         close(a.numpy(), b)
 
 
-@pytest.mark.parametrize("name", CC.CASES)
-def test_cluster_edges_plain_matches_jax_at_production_width(name):
-    """K4's twin against JAX at C = 32, cap 10 (`tests/cluster_cases.py`:
-    clumps with and without the orientation gate, all-masked rows, one
-    component larger than the cap, ties in the distance to the centroid,
-    NaN and inf at masked-out slots)."""
-    x, y, th, mask, kw = CC.case(name, 256, 32, seed=CC.CASES.index(name))
+def _twin_matches_jax(name, N, C):
+    x, y, th, mask, kw = CC.case(name, N, C, seed=CC.CASES.index(name))
     ref = JCL.cluster_edges(jnp.asarray(x), jnp.asarray(y), jnp.asarray(th),
                             jnp.asarray(mask), **kw)
     out = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
@@ -218,12 +215,101 @@ def test_cluster_edges_plain_matches_jax_at_production_width(name):
         np.testing.assert_allclose(
             a.numpy(), b, rtol=1e-5, equal_nan=True,
             atol=1e-5 * max(1.0, float(np.nanmax(np.abs(b), initial=0.0))))
-    if name == "big_component":       # the cap split components
+    if name in ("big_component", "long_chains"):   # the cap split groups
         assert int((out.members.sum(-1) == 10).sum()) > 0
         assert bool((out.members.sum(-1) <= 10).all())
     if name == "nonfinite_masked":    # the poisoned rows are the even ones
         assert bool(out.x[0::2][out.mask[0::2]].isnan().any())
         assert bool(out.x[1::2].isfinite().all())
+    if name == "signed_zeros":        # the group at -0.0 ends at -0 or +0
+        for v in (out.x, out.theta):
+            zero = out.mask & (v == 0)
+            assert bool((zero & v.signbit()).any())
+            assert bool((zero & ~v.signbit()).any())
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_cluster_edges_plain_matches_jax_at_production_width(name):
+    """K4's twin against JAX at C = 32, cap 10 (`tests/cluster_cases.py`:
+    clumps with and without the orientation gate, all-masked rows, one
+    component larger than the cap, ties in the distance to the centroid,
+    NaN and inf at masked-out slots, chains longer than JAX's label rounds
+    reach, signed zeros)."""
+    _twin_matches_jax(name, 256, 32)
+
+
+def _components(x, y, mask, thresh):
+    """Least member index of each slot's connected component of the
+    float32 distance graph (C for a masked slot), by boolean closure."""
+    N, C = x.shape
+    dx = x[:, :, None] - x[:, None, :]
+    dy = y[:, :, None] - y[:, None, :]
+    reach = ((np.sqrt(dx * dx + dy * dy) < np.float32(thresh))
+             & mask[:, :, None] & mask[:, None, :]) | np.eye(C, dtype=bool)
+    for _ in range(int(np.ceil(np.log2(C))) + 1):
+        reach = reach | (np.einsum("nij,njk->nik", reach.astype(np.int32),
+                                   reach.astype(np.int32)) > 0)
+    least = np.where(reach, np.arange(C), C).min(-1)
+    return np.where(mask, least, C)
+
+
+def test_long_chains_label_rounds_are_not_components():
+    """With the cap off, JAX's label rounds leave some chains of
+    `long_chains` in more than one label: its result is not the connected
+    components, so a kernel that computes the components fails the case.
+    The twin keeps JAX's labels."""
+    x, y, th, mask, kw = CC.case("long_chains", 256, 32, seed=6)
+    kw["max_cluster_size"] = 0
+    ref = np.asarray(JCL.cluster_edges(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(th), jnp.asarray(mask),
+        **kw).label)
+    comp = _components(x, y, mask, kw["dist_thresh"])
+    assert int((ref != comp).any(-1).sum()) > 0
+    out = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
+    np.testing.assert_array_equal(out.label.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_cluster_edges_plain_matches_jax_at_64_slots(name):
+    """K4's twin against JAX at C = 64 (K4 at two slots a lane, 8 label
+    rounds), 48 rows, cap 10."""
+    _twin_matches_jax(name, 48, 64)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_k4_jax_reference_file_is_current(name):
+    """`tests/data/k4_jax_reference.npz`, which K4's output on the card is
+    held against, equals what the JAX package computes now, bit for bit
+    (a NaN equal to a NaN); rewrite it with
+    `JAX_PLATFORMS=cpu python scripts/k4_jax_reference.py`."""
+    now = K4J.jax_outputs(name)
+    with np.load(K4J.PATH) as ref:
+        for f in K4J.FIELDS:
+            a, b = ref[K4J.key(name, f)], now[f]
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.dtype == np.float32:
+                same = (a.view(np.int32) == b.view(np.int32)) | (
+                    np.isnan(a) & np.isnan(b))
+                assert bool(same.all()), f
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", CC.CASES)
+def test_twin_within_the_k4_jax_tolerance(name):
+    """The twin on the CPU against the JAX fixture with the tolerance K4
+    is held to on the card: label, mask and members equal, x / y / theta
+    within `chip_smoke.K4_JAX_ULPS` ulps of max(|a|, |b|, 1)."""
+    x, y, th, mask, kw = K4J.inputs(name)
+    out = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
+    with np.load(K4J.PATH) as ref:
+        for f in ("label", "mask", "members"):
+            np.testing.assert_array_equal(getattr(out, f).numpy(),
+                                          ref[K4J.key(name, f)])
+        for f in ("x", "y", "theta"):
+            ulps, n_nan = chip_smoke.f32_ulps(getattr(out, f).numpy(),
+                                              ref[K4J.key(name, f)])
+            assert n_nan == 0 and ulps <= chip_smoke.K4_JAX_ULPS, (f, ulps)
 
 
 def test_cluster_edges_plain_chunking_changes_nothing():

@@ -47,6 +47,20 @@ Phases (each passes or exits non-zero):
      tests/descriptor_cases.py (tests/data/k5_jax_reference.npz, within
      1 bf16 ulp; `scripts/k5_variants.py` times the launch alone and its
      parts);
+ 6e. K6 (the dense NCC and descriptor gates) vs its plain twins run on the
+     card, bit for bit on every slot (the slots not computed holding their
+     fill), on the operands of frame 2's stereo call (stages 4-5), its
+     stage-11 call (the flat pair list) and its temporal call; each call
+     timed with its wrapper and as launches alone (a CUDA graph), beside
+     its bound over the live pairs and the twin, its live slots counted; K6
+     against the JAX package's `ncc4` and `min_cross_distance_dot` on
+     every case of tests/gate_cases.py (tests/data/
+     k6_k7_jax_reference.npz, within the CPU tests' tolerances);
+ 6f. K7 (two-side edge patches) vs its plain twin run on the card, bit for
+     bit, on frame 2's four calls (left edges, right edges, the stage-11
+     centres, the final mates); each call timed with its wrapper and as
+     launches alone, beside its bound and the twin; K7 against the JAX package's `edge_patches_tiled` on every
+     patch case of tests/gate_cases.py (the same file);
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -76,7 +90,8 @@ Phases (each passes or exits non-zero):
 On every path (6-10) the active K3 lanes are checked for a finite
 delta, and the lanes ended by the singular-lane guard are counted; K4 is
 launched once per stereo step and once per temporal step, K5 three times
-per stereo step.
+per stereo step, K6 twice per stereo step (stages 4-5, stage 11) and
+once per temporal step, K7 four times per stereo step.
 Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
@@ -196,6 +211,41 @@ K5_KEYPOINT_FLOPS = 4 * 128 + 2 + 3 * 128
 K5_KEYPOINT_IN_BYTES = 5 * 4
 K5_KEYPOINT_OUT_BYTES = 128 * 2
 
+# K6 (csrc/dense_gates.cu): what the function needs over the live pairs
+# (abs, min, max, compares and selects not counted), with a side of pp
+# samples. A descriptor's |a|^2 is 2 x (128 products, 127 adds), once a
+# descriptor: once a row with a live pair, once a distinct candidate row;
+# a pair's distance adds the 4 cross dots (2 x 256 products, 2 x 254
+# sums), 4 x (add, mul, sub) for the squared distances and a sqrt. A
+# patch side's centring is its sum (pp - 1), the mean (1), pp
+# subtractions, pp squares and their pp - 1 adds, once a side (a row's, a
+# distinct candidate row's; the flat call's right sides once an entry);
+# each of the 4 pairings of an NCC adds pp products (2 pp - 1) and takes
+# a product, sqrt and division. (The kernel forms a candidate's terms
+# again for each pair that reads it; that is not counted.) Bytes: the
+# mask read and the outputs written in full, the index of each live
+# slot, and each table row a live pair needs, once.
+K6_DESC_PAIR_FLOPS = 2 * 256 + 2 * 254 + 4 * 3 + 1
+K6_DESC_ROW_FLOPS = 2 * (128 + 127)
+
+
+def k6_side_flops(pp):
+    return 4 * pp - 1
+
+
+def k6_pair_flops(pp):
+    return 4 * (2 * pp - 1 + 3)
+
+
+# K7 (csrc/edge_patches.cu), counted from its code (abs, floor, ceil,
+# compares and selects not counted): per sample 8 coordinate (4 products,
+# 4 sums), 16 tap (the tile clamp's 2, the 4 weights' 10, the 4 indices'
+# sums), 9 bilinear; per edge sin and cos (as 1 each), the 2 shifts, the
+# 4 centres and the 2 tile origins (3 each). Bytes: the image once; per
+# edge x, y, theta in, its 2 P^2 floats and 2 flags out.
+K7_SAMPLE_FLOPS = 8 + 16 + 9
+K7_EDGE_FLOPS = 2 + 2 + 4 + 6
+
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """Least time in ms for `flops` and `nbytes` on the card, and what
@@ -267,6 +317,72 @@ def k5_work(K, S, nonzero, H, W):
     return flops, nbytes
 
 
+def k6_work(kind, live, pp, idx, survivors=None):
+    """(flops, bytes) of one K6 launch (numpy arrays or tensors): `kind`
+    "stereo", "temporal" or "flat"; `live` the (N, C) mask it was given
+    ((F,) flags for "flat"); `pp` the samples of a patch side; `idx` the
+    rows a pair reads: the (N, C) candidates in the right (stereo) or CF
+    (temporal) table, the (F,) left rows (flat); `survivors` the stereo
+    slots that passed the descriptor gate (the NCC's pairs)."""
+    def arr(m, dtype=bool):
+        return np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m,
+                          dtype)
+
+    live, idx = arr(live), arr(idx, np.int64)
+    n_live = int(live.sum())
+    side, pair = k6_side_flops(pp), k6_pair_flops(pp)
+    pat = 2 * pp * 4 + 2                         # a row's patches and flags
+    u_live = np.unique(idx[live]).size          # distinct rows read
+    if kind == "flat":
+        F = live.shape[0]
+        flops = u_live * 2 * side + n_live * (2 * side + pair)
+        return flops, F * (1 + 4) + n_live * (8 + pat) + u_live * pat
+    N, C = live.shape
+    rows = int(live.any(1).sum())
+    if kind == "stereo":
+        surv = arr(survivors)
+        n_surv, s_rows = int(surv.sum()), int(surv.any(1).sum())
+        u_surv = np.unique(idx[surv]).size
+        flops = ((rows + u_live) * K6_DESC_ROW_FLOPS
+                 + n_live * K6_DESC_PAIR_FLOPS
+                 + (s_rows + u_surv) * 2 * side + n_surv * pair)
+        nbytes = (N * C * (1 + 2 * 4) + n_live * 8 + (rows + u_live) * 512
+                  + (s_rows + u_surv) * pat)
+        return flops, nbytes
+    assert kind == "temporal", kind
+    flops = ((rows + u_live) * 2 * (K6_DESC_ROW_FLOPS + 2 * side)
+             + n_live * 2 * (K6_DESC_PAIR_FLOPS + pair))
+    nbytes = (N * C * (1 + 4 * 4) + n_live * 8 + rows * 2 * (512 + pat)
+              + u_live * (1024 + 4 * pp * 2 + 4))
+    return flops, nbytes
+
+
+def k7_work(B, pp, H, W):
+    """(flops, bytes) of one K7 launch over B edges of 2 pp samples on an
+    H x W image."""
+    flops = B * (2 * pp * K7_SAMPLE_FLOPS + K7_EDGE_FLOPS)
+    return flops, H * W * 4 + B * (3 * 4 + 2 * pp * 4 + 2)
+
+
+def gate_errors(a, b, mask, tol, relative=False):
+    """Entries of `mask` where a and b (numpy) differ past the CPU tests'
+    tolerance against JAX: NaN in one only, or |a - b| > atol + rtol |b|
+    (relative: rtol = tol, atol = tol max(1, max |b|) as
+    tests/test_torch_ops.py's `close`; else atol = tol). Returns (that
+    count, the largest |a - b| over the entries finite in both)."""
+    mask = np.asarray(mask, bool)
+    a = np.asarray(a, np.float64)[mask]
+    b = np.asarray(b, np.float64)[mask]
+    fin = np.isfinite(a) & np.isfinite(b)
+    scale = max(1.0, float(np.abs(b[fin]).max())) if fin.any() else 1.0
+    atol, rtol = (tol * scale, tol) if relative else (tol, 0.0)
+    d = np.abs(np.where(fin, a - b, 0.0))
+    bad = ((np.isnan(a) != np.isnan(b))
+           | (fin & (d > atol + rtol * np.abs(np.where(fin, b, 0.0))))
+           | (~fin & ~np.isnan(a) & (a != b)))
+    return int(bad.sum()), float(d.max()) if d.size else 0.0
+
+
 # K4 against the JAX package's outputs: x, y and theta within this many
 # float32 ulps of max(|a|, |b|, 1). The twin (and K4) adds in ascending
 # slot order, XLA's dots in their own order, and the card's expf may
@@ -297,6 +413,40 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device ms per call of `fn`'s launches alone: `reps` calls
+    captured in one CUDA graph, so the wrapper's host work (checks, the
+    ctypes call) runs once at capture and not between the launches; the
+    graph replayed once to warm, then timed."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    del g
+    return ms
+
+
+def launch_bound(ms, launch_ms, flops, nbytes):
+    """`with_bound` for a kernel timed both with its wrapper (`ms`) and
+    as launches alone (`launch_ms`): the % of bound is the launches',
+    the wrapper's beside it."""
+    b = with_bound(launch_ms, flops, nbytes)
+    b.update(ms=ms, launch_ms=launch_ms,
+             pct_of_bound_with_wrapper=100.0 * b["bound_ms"] / ms)
+    return b
 
 
 def with_bound(ms, flops, nbytes, fma_free=False):
@@ -436,13 +586,14 @@ def temporal_split(step, args, reps=3):
     from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import patches as P
 
     split = step_split(
         ((TM, "match_temporal", "match_temporal"),
          (GN, "interleave_pair_maps", "interleave_pair_maps"),
          (GN, "refine_2dof_pair_batch", "refine_2dof_pair_batch"),
          (CL, "cluster_edges", "cluster_edges"),
-         (TM, "_row_chunked", "dense NCC + descriptor gates"),
+         (P, "dense_gates_temporal", "dense NCC + descriptor gates"),
          (MT, "lift_quads", "lift_quads"),
          (MT, "estimate_pose", "estimate_pose")),
         "temporal step", step, args, reps)
@@ -454,8 +605,9 @@ def temporal_split(step, args, reps=3):
 
 def stereo_split(step, args, reps=3):
     """Per-stage ms of one stereo step (`step_split`): edge detection,
-    descriptors, the dense gates, patches, K2's two phases
-    (`refine_along_epipolar_batch`) and the clustering."""
+    descriptors, the dense gates of stages 4-5 (K6), the four patch calls
+    (K7), K2's two phases (`refine_along_epipolar_batch`), the clustering
+    and stage 11's NCC (K6)."""
     from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
@@ -464,15 +616,17 @@ def stereo_split(step, args, reps=3):
     from edge_based_visual_odometry_tpu_torch.ops import toed as T
 
     inner = ("edge_descriptors", "dense NCC + descriptor gates",
-             "edge_patches", "refine_along_epipolar_batch", "cluster_edges")
+             "edge_patches", "refine_along_epipolar_batch", "cluster_edges",
+             "stage-11 NCC")
     split = step_split(
         ((T, "detect_edges", "detect_edges"),
          (SM, "match_stereo", "match_stereo"),
          (DESC, "edge_descriptors", inner[0]),
-         (SM, "_row_chunked", inner[1]),
-         (P, "edge_patches", inner[2]),
+         (P, "dense_gates_stereo", inner[1]),
+         (P, "edge_patches_flat", inner[2]),
          (GN, "refine_along_epipolar_batch", inner[3]),
-         (CL, "cluster_edges", inner[4])),
+         (CL, "cluster_edges", inner[4]),
+         (P, "dense_gates_flat", inner[5])),
         "stereo step", step, args, reps)
     split["rest of match_stereo"] = split["match_stereo"] - sum(
         split[nm] for nm in inner)
@@ -1018,6 +1172,263 @@ def phase_k5(desc_ops, card):
         **step)
 
 
+def gate_tensors(case, dev):
+    """A case of tests/gate_cases.py (numpy) as tensors on `dev`, the
+    descriptors and the CF patches in bf16."""
+    out = {}
+    for k, v in case.items():
+        v = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        out[k] = v.to(torch.bfloat16) if "desc" in k or k == "cf_pat" else v
+    return out
+
+
+def k6_args(kind, t):
+    """(args, kwargs) of K6's `kind` entry ("stereo", "temporal", "flat")
+    on a gate case's tensors, with the fills the cascades use."""
+    from tests import gate_cases as GC
+
+    if kind == "stereo":
+        return ((t["l_desc"], t["r_desc"], t["cand"], t["cmask"], t["l_pat"],
+                 t["l_ok"], t["r_pat"], t["r_ok"], GC.SIFT, GC.P),
+                dict(fill_dist=2 * GC.SIFT, fill_ncc=0.0))
+    if kind == "temporal":
+        return ((t["kf_pat_l"], t["kf_ok_l"], t["kf_pat_r"], t["kf_ok_r"],
+                 t["kf_desc_l"], t["kf_desc_r"], t["cf_pat"], t["cf_ok"],
+                 t["cf_desc"], t["cf_idx"], t["cmask"], GC.P),
+                dict(fill_ncc=-1.0, fill_dist=900.0))
+    assert kind == "flat", kind
+    return ((t["l_pat"], t["l_ok"], t["rows"], t["r_pat"], t["r_ok"],
+             t["live"], GC.P), dict(fill=0.6 + 1e-6))
+
+
+def k6_against_jax(dev):
+    """K6 on the card against the JAX package's `min_cross_distance_dot`
+    and `ncc4` on every case of `tests/gate_cases.py`
+    (`tests/data/k6_k7_jax_reference.npz`): {case: (entries past the CPU
+    tests' tolerance, the largest distance and NCC differences)}; the
+    distances within 0.05 on the live slots, the NCC within 1e-5 of
+    max(1, |b|) on the pairs it computed."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from scripts import k6_k7_jax_reference as KJ
+    from tests import gate_cases as GC
+
+    res = {}
+    with np.load(KJ.PATH) as ref:
+        for name in GC.GATE_CASES:
+            s = GC.stereo_case(name)
+            a, kw = k6_args("stereo", gate_tensors(s, dev))
+            d, n = (x.cpu().numpy() for x in PAT.dense_gates_stereo_cuda(*a,
+                                                                        **kw))
+            f = GC.flat_case(name)
+            a, kw = k6_args("flat", gate_tensors(f, dev))
+            fl = PAT.dense_gates_flat_cuda(*a, **kw).cpu().numpy()
+            tc = GC.temporal_case(name)
+            a, kw = k6_args("temporal", gate_tensors(tc, dev))
+            tm = PAT.dense_gates_temporal_cuda(*a, **kw).cpu().numpy()
+            rd, rn = ref[f"stereo/{name}/dist"], ref[f"stereo/{name}/ncc"]
+            rt = ref[f"temporal/{name}"]
+            live, tlive = s["cmask"], tc["cmask"]
+            errs = [gate_errors(d, rd, live, 0.05),
+                    gate_errors(n, rn, live & (d < GC.SIFT), 1e-5, True),
+                    gate_errors(fl, rn.reshape(-1), f["live"], 1e-5, True)]
+            errs += [gate_errors(tm[q], rt[q], tlive, 1e-5, True)
+                     for q in (0, 1)]
+            errs += [gate_errors(tm[q], rt[q], tlive, 0.05) for q in (2, 3)]
+            res[name] = (sum(e[0] for e in errs),
+                         max(errs[0][1], errs[5][1], errs[6][1]),
+                         max(errs[1][1], errs[2][1], errs[3][1],
+                             errs[4][1]))
+    return res
+
+
+def k7_against_jax(dev):
+    """K7 on the card against the JAX package's `edge_patches_tiled` on
+    every patch case of `tests/gate_cases.py` (the same file): {case:
+    (values past 1e-5 of max(1, |b|) or NaN in one only, the largest
+    difference, ok flags that differ)}."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from scripts import k6_k7_jax_reference as KJ
+    from tests import gate_cases as GC
+
+    res = {}
+    with np.load(KJ.PATH) as ref:
+        for name in GC.PATCH_CASES:
+            img, edges = GC.patch_case(name)
+            pat, ok = (x.cpu().numpy() for x in PAT.edge_patches_cuda(
+                *(torch.from_numpy(a).to(dev) for a in (img, *edges)),
+                GC.P, GC.SHIFT))
+            n_bad, err = gate_errors(pat, ref[f"patches/{name}/pat"],
+                                     np.ones(pat.shape, bool), 1e-5, True)
+            res[name] = (n_bad, err,
+                         int((ok != ref[f"patches/{name}/ok"]).sum()))
+    return res
+
+
+def f32_differ(a, b):
+    """Entries of two float32 tensors whose bit patterns differ (a NaN
+    equals a NaN)."""
+    return int(((a.view(torch.int32) != b.view(torch.int32))
+                & ~(a.isnan() & b.isnan())).sum())
+
+
+def phase_k6(gate_ops, card):
+    """Phase 6e: K6 against its twins run on the card, bit for bit on every
+    slot, on the operands of frame 2's three calls (`gate_ops`: kind ->
+    (args, kwargs)): stages 4-5 and stage 11 of its stereo step, its
+    temporal step; the slots not computed hold their fill. Each call timed
+    with CUDA events beside its bound (`k6_work`) and the twin; K6 against
+    the JAX package (`k6_against_jax`). Returns the kernel's JSON entry,
+    its times and bound those of a frame's three calls."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    entries = {"stereo": (PAT.dense_gates_stereo_cuda,
+                          PAT.dense_gates_stereo_plain),
+               "flat": (PAT.dense_gates_flat_cuda, PAT.dense_gates_flat_plain),
+               "temporal": (PAT.dense_gates_temporal_cuda,
+                            PAT.dense_gates_temporal_plain)}
+    calls, err = {}, 0.0
+    for kind, (kern, twin) in entries.items():
+        check(kind in gate_ops, f"K6: no {kind} call recorded in frame 2")
+        a, kw = gate_ops[kind]
+        k, p = kern(*a, **kw), twin(*a, **kw)
+        torch.cuda.synchronize()
+        k, p = (torch.stack(x) if isinstance(x, tuple) else x for x in (k, p))
+        n_bad = f32_differ(k, p)
+        check(n_bad == 0, f"K6 {kind} call: {n_bad} of {k.numel()} values "
+                          f"not bit-equal to the twin")
+        fin = k.isfinite() & p.isfinite()
+        if bool(fin.any()):
+            err = max(err, float((k - p).abs()[fin].max()))
+        if kind == "stereo":
+            live, pp = a[3], a[9] * a[9]
+            surv = live & (k[0] < a[8])
+            fills = ((k[0] == kw["fill_dist"]) | live).all() & (
+                (k[1] == kw["fill_ncc"]) | surv).all()
+            work = k6_work("stereo", live, pp, a[2], surv)
+            detail = dict(rows=live.shape[0], slots=live.shape[1],
+                          live=int(live.sum()), ncc_pairs=int(surv.sum()))
+        elif kind == "flat":
+            live, pp = a[5], a[6] * a[6]
+            fills = ((k == kw["fill"]) | live).all()
+            work = k6_work("flat", live, pp, a[2])
+            detail = dict(pairs=live.shape[0], live=int(live.sum()))
+        else:
+            live, pp = a[10], a[11] * a[11]
+            fills = ((k[:2] == kw["fill_ncc"]) | live).all() & (
+                (k[2:] == kw["fill_dist"]) | live).all()
+            work = k6_work("temporal", live, pp, a[9])
+            detail = dict(rows=live.shape[0], slots=live.shape[1],
+                          live=int(live.sum()))
+        check(bool(fills), f"K6 {kind} call: a slot not computed lost its "
+                           f"fill")
+        row = launch_bound(cuda_ms(lambda: kern(*a, **kw), 20),
+                           graph_ms(lambda: kern(*a, **kw), 20), *work)
+        row.update(plain_ms=cuda_ms(lambda: twin(*a, **kw), 2), **detail)
+        calls[kind] = row
+        print(f"K6 dense_gates, {kind} call ({detail}): bit-equal to its "
+              f"twin on the card on every slot, fills kept; kernel "
+              f"{row['launch_ms']:.4f} ms launched alone, {row['ms']:.4f} "
+              f"ms with its wrapper, twin {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}: "
+              f"{row['flops']} flop, {row['bytes']} B), "
+              f"{row['pct_of_bound']:.1f}% of it alone, "
+              f"{row['pct_of_bound_with_wrapper']:.1f}% with the wrapper "
+              f"[{card}]")
+    jax_cmp = k6_against_jax(gate_ops["stereo"][0][0].device)
+    for name, (n_bad, d_err, n_err) in jax_cmp.items():
+        print(f"K6 against JAX's min_cross_distance_dot / ncc4, case {name}: "
+              f"{n_bad} entries past the tolerance (distance 0.05, NCC "
+              f"1e-5); distances at most {d_err:.3g} apart, NCC "
+              f"{n_err:.3g}")
+        check(n_bad == 0, f"K6 case {name}: {n_bad} entries differ from "
+                          f"JAX's past the tolerance")
+    frame = launch_bound(*(sum(r[k] for r in calls.values()) for k in (
+        "ms", "launch_ms", "flops", "bytes")))
+    print(f"K6 a frame's three calls: {frame['launch_ms']:.4f} ms launched "
+          f"alone, {frame['ms']:.4f} ms with the wrapper; "
+          f"{frame['pct_of_bound']:.1f}% of {frame['bound_ms'] * 1e3:.1f} us "
+          f"alone, {frame['pct_of_bound_with_wrapper']:.1f}% with the "
+          f"wrapper; twin {sum(r['plain_ms'] for r in calls.values()):.2f} "
+          f"ms [{card}]")
+    return dict(
+        name="dense_gates", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/dense_gates.cu",
+        replaces="edge_based_visual_odometry_tpu/ops/patches.py:186",
+        max_abs_err=err, library_ms=None,
+        plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        against_jax_max_err={"distance": max(v[1] for v in jax_cmp.values()),
+                             "ncc": max(v[2] for v in jax_cmp.values())},
+        **frame)
+
+
+def phase_k7(patch_ops, card):
+    """Phase 6f: K7 against its twin run on the card, bit for bit, on the
+    operands of the four `edge_patches_flat` calls of frame 2's stereo
+    step (`patch_ops`: (args, kwargs) of each); each call timed beside its
+    bound (`k7_work`) and the twin; K7 against the JAX package
+    (`k7_against_jax`). Returns the kernel's JSON entry, its times and
+    bound those of a stereo step's four calls."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    check(len(patch_ops) == 4, f"K7: {len(patch_ops)} calls of edge_patches "
+                               f"recorded in frame 2's stereo step, not 4")
+    calls, err = {}, 0.0
+    for name, (a, kw) in zip(("left edges", "right edges", "stage-11 centres",
+                              "mates"), patch_ops):
+        B = a[1].shape[0]
+        H, W = a[0].shape
+        pp = a[4] * a[4]
+        k = PAT.edge_patches_cuda(*a, **kw)
+        p = PAT.edge_patches_plain(*a, **kw)
+        torch.cuda.synchronize()
+        n_bad = f32_differ(k[0], p[0]) + int((k[1] != p[1]).sum())
+        check(n_bad == 0, f"K7 {name} call ({B} edges): {n_bad} values or "
+                          f"flags differ from the twin")
+        fin = k[0].isfinite()
+        if bool(fin.any()):
+            err = max(err, float((k[0] - p[0]).abs()[fin].max()))
+        row = launch_bound(
+            cuda_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
+            graph_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
+            *k7_work(B, pp, H, W))
+        row.update(plain_ms=cuda_ms(
+            lambda: PAT.edge_patches_plain(*a, **kw), 2),
+            edges=B, ok_sides=int(k[1].sum()))
+        calls[name] = row
+        print(f"K7 edge_patches, {name} ({B} edges, {row['ok_sides']} sides "
+              f"ok): bit-equal to its twin on the card; kernel "
+              f"{row['launch_ms']:.4f} ms launched alone, {row['ms']:.4f} "
+              f"ms with its wrapper, twin {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}: "
+              f"{row['flops']} flop, {row['bytes']} B), "
+              f"{row['pct_of_bound']:.1f}% of it alone, "
+              f"{row['pct_of_bound_with_wrapper']:.1f}% with the wrapper "
+              f"[{card}]")
+    jax_cmp = k7_against_jax(patch_ops[0][0][0].device)
+    for name, (n_bad, e, n_ok) in jax_cmp.items():
+        print(f"K7 against JAX's edge_patches_tiled, case {name}: {n_bad} "
+              f"values past 1e-5 of max(1, |b|) (at most {e:.3g} apart), "
+              f"{n_ok} ok flags differ")
+        check(n_bad == 0 and n_ok == 0,
+              f"K7 case {name}: {n_bad} values and {n_ok} flags differ from "
+              f"JAX's")
+    step = launch_bound(*(sum(r[k] for r in calls.values()) for k in (
+        "ms", "launch_ms", "flops", "bytes")))
+    print(f"K7 a stereo step's four calls: {step['launch_ms']:.4f} ms "
+          f"launched alone, {step['ms']:.4f} ms with the wrapper; "
+          f"{step['pct_of_bound']:.1f}% of {step['bound_ms'] * 1e3:.1f} us "
+          f"alone, {step['pct_of_bound_with_wrapper']:.1f}% with the "
+          f"wrapper; twin {sum(r['plain_ms'] for r in calls.values()):.2f} ms "
+          f"[{card}]")
+    return dict(
+        name="edge_patches", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/edge_patches.cu",
+        replaces="edge_based_visual_odometry_tpu/ops/patches.py:125",
+        max_abs_err=err, library_ms=None,
+        plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        against_jax_max_err=max(v[1] for v in jax_cmp.values()), **step)
+
+
 def phase_sequence(seq, images, card, work_dir):
     """Phase 7. Returns the kernel launches of the main run."""
     from edge_based_visual_odometry_tpu_torch import cli as CLI
@@ -1461,6 +1872,7 @@ def main():
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
     from edge_based_visual_odometry_tpu_torch.ops import toed
     from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
 
@@ -1671,6 +2083,25 @@ def main():
         desc_ops[:] = desc_ops[-2:] + [(a, kw)]
         return describe(*a, **kw)
 
+    # the operands of the last K6 call of each kind (frame 2's) for phase
+    # 6e, and of the four edge_patches calls of the last stereo step for
+    # phase 6f
+    gate_ops, patch_ops = {}, []
+    gates = {kind: getattr(PAT, f"dense_gates_{kind}")
+             for kind in ("stereo", "flat", "temporal")}
+
+    def recording_gates(kind):
+        def run(*a, **kw):
+            gate_ops[kind] = (a, kw)
+            return gates[kind](*a, **kw)
+        return run
+
+    sample = PAT.edge_patches_flat
+
+    def recording_patches(*a, **kw):
+        patch_ops.append((a, kw))
+        return sample(*a, **kw)
+
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
     stereo = pipe._stereo_step
@@ -1685,9 +2116,13 @@ def main():
     per_frame = []
     CL.cluster_edges = recording_cluster
     DESC.edge_descriptors = recording_describe
+    PAT.edge_patches_flat = recording_patches
+    for kind in gates:
+        setattr(PAT, f"dense_gates_{kind}", recording_gates(kind))
     try:
         with K3Watch() as watch:
             for k, (l, r) in enumerate(frames):
+                patch_ops.clear()
                 before = dict(CB.LAUNCHES)
                 t = time.perf_counter()
                 fr, tr = pipe.run_frame(l, r)
@@ -1701,6 +2136,9 @@ def main():
     finally:
         CL.cluster_edges = cluster
         DESC.edge_descriptors = describe
+        PAT.edge_patches_flat = sample
+        for kind, fn in gates.items():
+            setattr(PAT, f"dense_gates_{kind}", fn)
     launches = dict(CB.LAUNCHES)
     k3_lanes = {"frame": watch.read("frame")}
 
@@ -1719,6 +2157,12 @@ def main():
         # K5: left edges, right edges, final mates
         check(dl["edge_descriptors"] == 3,
               f"frame {k}: K5 launched {dl['edge_descriptors']} times")
+        # K6: stages 4-5 and stage 11, and the temporal step's gates
+        check(dl["dense_gates"] == (3 if k else 2),
+              f"frame {k}: K6 launched {dl['dense_gates']} times")
+        # K7: left edges, right edges, stage-11 centres, final mates
+        check(dl["edge_patches"] == 4,
+              f"frame {k}: K7 launched {dl['edge_patches']} times")
         m = fr.mates
         v = m.valid
         check(m.gamma.shape == (cfg.max_mates, 3), f"frame {k}: gamma shape")
@@ -1773,6 +2217,10 @@ def main():
     kernels.append(phase_k4(cl_ops, card))
     # ---- 6d. K5 vs plain, bit for bit, on frame 2's three calls ----
     kernels.append(phase_k5(desc_ops, card))
+    # ---- 6e. K6 vs plain, bit for bit, on frame 2's three calls ----
+    kernels.append(phase_k6(gate_ops, card))
+    # ---- 6f. K7 vs plain, bit for bit, on frame 2's four calls ----
+    kernels.append(phase_k7(patch_ops, card))
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1816,6 +2264,20 @@ def main():
     print("K5 launches per path (3 a stereo step): "
           + "; ".join(f"{p} {c['edge_descriptors']}"
                       for p, c in by_path.items()))
+    # K6 twice per stereo step and once per temporal step, K7 four times
+    # per stereo step
+    for path, c in by_path.items():
+        steps = (c["toed_gradient_field"], c["refine_2dof"] // 2)
+        check(c["dense_gates"] == 2 * steps[0] + steps[1],
+              f"{path}: K6 launched {c['dense_gates']} times for {steps[0]} "
+              f"stereo and {steps[1]} temporal steps")
+        check(c["edge_patches"] == 4 * steps[0],
+              f"{path}: K7 launched {c['edge_patches']} times for "
+              f"{steps[0]} stereo steps")
+    print("K6 / K7 launches per path (2 a stereo and 1 a temporal step / 4 "
+          "a stereo step): " + "; ".join(
+              f"{p} {c['dense_gates']} / {c['edge_patches']}"
+              for p, c in by_path.items()))
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they
@@ -1831,7 +2293,7 @@ def main():
     dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     check(dev_ms > 0, "traced frame 3: the profiler saw no device time")
     print(f"traced frame 3: {sum(e.count for e in on_card)} kernels and "
-          f"copies (6,830 with the per-side K3 driver), {dev_ms:.1f} ms "
+          f"copies (4,096 before K6 and K7), {dev_ms:.1f} ms "
           f"on the card in "
           f"{traced_ms:.1f} ms of wall time under the profiler (busy share "
           f"{dev_ms / traced_ms:.2f}) [{card}]")
@@ -1862,7 +2324,8 @@ def main():
             "values_not_bit_equal", "forms", "launches_by_path",
             "step_launches_ms", "glue_ms", "pair_batch_ms",
             "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
-            "against_jax_max_ulps", "calls")}
+            "against_jax_max_ulps", "against_jax_max_err", "calls",
+            "launch_ms", "pct_of_bound_with_wrapper")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,17 @@ module here keeps its counterpart's module path, function names and
 tensor contracts (shapes, capacities, masks, orderings), so that each
 stage can be held against the reference on the same numpy inputs.
 
-Plain tensor code is PyTorch. The three hot kernels of the frame are
+Plain tensor code is PyTorch. Seven kernels of the frame are
 hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use:
 
-  - `ops.toed.toed_gradient_field`             (TOED filter bank)
-  - `ops.gauss_newton.refine_along_epipolar`   (1-DoF epipolar GN)
-  - `ops.gauss_newton.refine_2dof_pair_batch`  (2-DoF KF->CF GN)
+  - K1 `ops.toed.toed_gradient_field`             (TOED filter bank)
+  - K2 `ops.gauss_newton.refine_along_epipolar`   (1-DoF epipolar GN)
+  - K3 `ops.gauss_newton.refine_2dof_pair_batch`  (2-DoF KF->CF GN)
+  - K4 `ops.clustering.cluster_edges`             (edge clustering)
+  - K5 `ops.descriptors.edge_descriptors`         (edge descriptors)
+  - K6 `ops.patches.dense_gates_stereo`, `dense_gates_flat`,
+    `dense_gates_temporal`                        (NCC + descriptor gates)
+  - K7 `ops.patches.edge_patches`                 (two-side edge patches)
 
 Each has a plain-PyTorch twin in the same module; a CPU tensor goes to
 the twin, a CUDA tensor to the kernel.

@@ -9,8 +9,8 @@ with a monotone mask:
   stage 1  epipolar distance      stage 7  best/nearly-best descriptor
   stage 2  max disparity          stage 8  epipolar shift
   stage 3  orientation            stage 9  1-DoF photometric GN (kernel K2)
-  stage 4  descriptor gate        stage 10 clustering
-  stage 5  NCC                    stage 11 post-cluster NCC
+  stage 4  descriptor gate (K6)   stage 10 clustering (K4)
+  stage 5  NCC (K6)               stage 11 post-cluster NCC (K7, K6)
   stage 6  best/nearly-best NCC   stage 12 best-only pick, empty-row purge
 
 Stage metrics rows are aligned with STAGE_NAMES: without GT, [rows with
@@ -40,9 +40,6 @@ STAGE_NAMES = (
     "BNB-NCC", "BNB-SIFT", "Photometric Refinement", "Edge Clustering",
     "NCC-Post", "Best", "Final",
 )
-
-ROW_CHUNK = 8192   # rows per chunk of the dense gate stages (memory bound)
-
 
 class StereoState(NamedTuple):
     """Cascade state: left edge rows x candidate slots."""
@@ -198,11 +195,6 @@ def _count_row(mask):
                         mask.sum().to(torch.float32), z, z])
 
 
-def _row_chunked(fn, n_rows: int, chunk: int = ROW_CHUNK):
-    return torch.cat([fn(slice(s, s + chunk))
-                      for s in range(0, max(n_rows, 1), chunk)])
-
-
 def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                  frame: FrameData, rig: RigArrays, cfg: VOConfig,
                  disparity_map: Optional[torch.Tensor] = None,
@@ -316,13 +308,15 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
 
     cand_idx, c_attrs, cmask = GRID.compact_candidates_attrs(
         gidx, g_attrs, gmask, C, priority=g_epi)
+    # the scores a slot holds until a gate computes it
+    fill_ncc, fill_dist = 0.0, 2.0 * cfg.sift_threshold
     state = StereoState(
         row_mask=row_mask, lx=lx, ly=ly, ltheta=lt, epi_line=epi,
         gt_x=gt_x, gt_y=gt_y, gamma_gt_l=gamma_l, gamma_gt_r=gamma_r,
         cand_idx=cand_idx, cx=c_attrs[0], cy=c_attrs[1], ctheta=c_attrs[2],
         cmask=cmask,
-        ncc=torch.zeros((N, C), device=dev),
-        desc_dist=torch.full((N, C), 2.0 * cfg.sift_threshold, device=dev))
+        ncc=torch.full((N, C), fill_ncc, device=dev),
+        desc_dist=torch.full((N, C), fill_dist, device=dev))
 
     def record(st):
         metrics.append(_metrics(st, cfg.dist_to_gt_thresh) if has_gt
@@ -368,36 +362,25 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                                    right_edges.x, right_edges.y,
                                    right_edges.theta, **desc_kw)
 
-    # ---- stage 4: descriptor gate (dense rows) ----
-    ddist = _row_chunked(lambda s: DESC.min_cross_distance_dot(
-        l_desc[s], r_desc[state.cand_idx[s]]), N)
+    # ---- patches for NCC, flat [plus | minus] (K7) ----
+    psize, pshift = cfg.patch_size, cfg.orthogonal_shift_mag
+    l_patches, l_patch_ok = P.edge_patches_flat(frame.left, lx, ly, lt, psize,
+                                                pshift)
+    r_patches, r_patch_ok = P.edge_patches_flat(
+        frame.right, right_edges.x, right_edges.y, right_edges.theta, psize,
+        pshift)
+
+    # ---- stages 4-5: descriptor gate on the live slots, NCC on its
+    # survivors (K6); the other slots keep their fill ----
+    ddist, sim = P.dense_gates_stereo(
+        l_desc, r_desc, state.cand_idx, state.cmask, l_patches, l_patch_ok,
+        r_patches, r_patch_ok, cfg.sift_threshold, psize,
+        fill_dist=fill_dist, fill_ncc=fill_ncc)
     snap_filter("sift_distance", state, ddist)
     state = state._replace(cmask=state.cmask & (ddist < cfg.sift_threshold),
                            desc_dist=ddist)
     record(state)
     snap_ambiguity("sift", state)
-
-    # ---- patches for NCC, flat [plus | minus] ----
-    pp_n = cfg.patch_size * cfg.patch_size
-    lp_p, lp_m, lok_p, lok_m = P.edge_patches(
-        frame.left, lx, ly, lt, cfg.patch_size, cfg.orthogonal_shift_mag)
-    l_patches = torch.cat([lp_p, lp_m], -1)
-    l_patch_ok = torch.stack([lok_p, lok_m], 1)
-    rp_p, rp_m, rok_p, rok_m = P.edge_patches(
-        frame.right, right_edges.x, right_edges.y, right_edges.theta,
-        cfg.patch_size, cfg.orthogonal_shift_mag)
-    r_patches = torch.cat([rp_p, rp_m], -1)
-    r_patch_ok = torch.stack([rok_p, rok_m], 1)
-
-    # ---- stage 5: NCC (dense rows) ----
-    def ncc_rows(s):
-        idx = state.cand_idx[s]
-        cp, cok = r_patches[idx], r_patch_ok[idx]
-        lp, lok = l_patches[s][:, None], l_patch_ok[s][:, None]
-        return P.ncc4(lp[..., :pp_n], lp[..., pp_n:], lok[..., 0], lok[..., 1],
-                      cp[..., :pp_n], cp[..., pp_n:], cok[..., 0], cok[..., 1])
-
-    sim = _row_chunked(ncc_rows, N)
     snap_filter("ncc", state, sim)
     state = state._replace(cmask=state.cmask & (sim > cfg.ncc_thresh), ncc=sim)
     record(state)
@@ -463,19 +446,18 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     snap_ambiguity("edge_clustering", state)
     snap_state("cluster", state)
 
-    # ---- stage 11: post-cluster NCC at the new centres ----
+    # ---- stage 11: post-cluster NCC at the new centres (K7, K6) ----
     rows, slots, fmask = _flatten_active(state.cmask, cfg.max_refine_pairs)
-    f_pack = torch.stack([state.cx, state.cy, state.ctheta],
-                         -1).reshape(N * C, 3)[rows * C + slots]
-    pp, pm, okp, okm = P.edge_patches(
-        frame.right, f_pack[:, 0], f_pack[:, 1], f_pack[:, 2],
-        cfg.patch_size, cfg.orthogonal_shift_mag)
-    lp_r = l_patches[rows]
-    lok_r = l_patch_ok[rows]
-    sim_f = P.ncc4(lp_r[:, :pp_n], lp_r[:, pp_n:], lok_r[:, 0], lok_r[:, 1],
-                   pp, pm, okp, okm)
+    lin = rows * C + slots
+    fx, fy, ft = (t.reshape(-1)[lin]
+                  for t in (state.cx, state.cy, state.ctheta))
+    f_patches, f_patch_ok = P.edge_patches_flat(frame.right, fx, fy, ft,
+                                                psize, pshift)
+    just_pass = cfg.ncc_thresh + 1e-6
+    sim_f = P.dense_gates_flat(l_patches, l_patch_ok, rows, f_patches,
+                               f_patch_ok, fmask, psize, fill=just_pass)
     # active pairs beyond the flat budget stay alive, just passing
-    sim_full = _scatter_back(torch.full_like(state.ncc, cfg.ncc_thresh + 1e-6),
+    sim_full = _scatter_back(torch.full_like(state.ncc, just_pass),
                              rows, slots, fmask, sim_f)
     state = state._replace(cmask=state.cmask & (sim_full > cfg.ncc_thresh),
                            ncc=sim_full)
@@ -524,10 +506,8 @@ def _finalize(state: StereoState, frame: FrameData, rig: RigArrays,
     ly = state.ly[row_of]
     lt = state.ltheta[row_of]
 
-    pp, pm, okp, okm = P.edge_patches(frame.right, rx, ry, rt, cfg.patch_size,
-                                      cfg.orthogonal_shift_mag)
-    r_patches = torch.cat([pp, pm], -1)
-    r_patch_ok = torch.stack([okp, okm], 1)
+    r_patches, r_patch_ok = P.edge_patches_flat(
+        frame.right, rx, ry, rt, cfg.patch_size, cfg.orthogonal_shift_mag)
     r_desc = DESC.edge_descriptors(frame.right_gx, frame.right_gy, rx, ry, rt,
                                    **desc_kw)
     ray1 = geom.pixel_to_ray(rig.K_left_inv, torch.stack([lx, ly], -1))

@@ -8,9 +8,10 @@ rows that form a veridical quad, recall/precision rows). The state is a
 fixed-shape (M_kf, MAX_QUAD_CAND) tensor keyed by CF mate index.
 
 Cascade: grid gathering + box membership both sides, orientation both
-sides, NCC both sides, descriptor both sides, best/nearly-best on the
-left NCC then the left descriptor, 2-DoF photometric GN both sides,
-clustering of the left centres with right-side averaging.
+sides, NCC both sides, descriptor both sides (both gates: kernel K6),
+best/nearly-best on the left NCC then the left descriptor, 2-DoF
+photometric GN both sides (K3), clustering of the left centres with
+right-side averaging (K4).
 """
 
 from __future__ import annotations
@@ -22,11 +23,10 @@ import torch
 from edge_based_visual_odometry_tpu_torch import geometry as geom
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.models.stereo_matcher import (
-    _bnb_keep, _count_row, _flatten_active, _row_chunked, _scatter_back)
+    _bnb_keep, _count_row, _flatten_active, _scatter_back)
 from edge_based_visual_odometry_tpu_torch.models.types import (
     FrameData, RigArrays, StereoMates)
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
-from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
@@ -198,47 +198,31 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
     d_r = torch.hypot(g_at[3] - pr[:, None, 0], g_at[4] - pr[:, None, 1])
     cf_idx, c_at, cmask = GRID.compact_candidates_attrs(
         gidx, g_at, gmask, Cq, priority=d_l + d_r)
+    # the scores a slot holds until a gate computes it (failing both gates)
+    fill_ncc, fill_dist = -1.0, 900.0
     q = TemporalQuads(
         row_mask=row_mask, proj_left=pl, proj_right=pr, proj_theta_l=th_l,
         proj_theta_r=th_r, has_veridical=has_verid, cf_idx=cf_idx,
         lcx=c_at[0], lcy=c_at[1], lct=c_at[2],
         rcx=c_at[3], rcy=c_at[4], rct=c_at[5], cmask=cmask,
-        ncc_l=torch.full((M, Cq), -1.0, device=dev),
-        desc_l=torch.full((M, Cq), 900.0, device=dev))
+        ncc_l=torch.full((M, Cq), fill_ncc, device=dev),
+        desc_l=torch.full((M, Cq), fill_dist, device=dev))
 
     def record(qq):
         metrics.append(_quad_metrics(qq, kf.is_tp, cfg.dist_to_gt_thresh_quads)
                        if use_gt else _count_row(qq.cmask))
 
-    # ---- NCC + descriptor gates, both sides (dense) ----
+    # ---- NCC + descriptor gates, both sides, on the live slots (K6) ----
     # CF patches are rounded to bf16, as the reference ships them
-    pp_n = cfg.patch_size * cfg.patch_size
-    two = 2 * pp_n
-    cf_pat_lr = torch.cat([cf.left_patches, cf.right_patches],
-                          -1).to(torch.bfloat16)
-    cok_lr_src = torch.cat([cf.left_patch_ok, cf.right_patch_ok], -1)
-    cf_desc_lr = torch.cat([cf.left_desc, cf.right_desc], -1)
-    D2 = cf.left_desc.shape[-1]
-
-    def side_ncc(kp, kok, cp, cok):
-        return P.ncc4(kp[:, None, :pp_n], kp[:, None, pp_n:],
-                      kok[:, None, 0], kok[:, None, 1],
-                      cp[..., :pp_n], cp[..., pp_n:], cok[..., 0], cok[..., 1])
-
-    def gate_rows(s):
-        idx = q.cf_idx[s]
-        cpat = cf_pat_lr[idx].to(torch.float32)
-        cok = cok_lr_src[idx]
-        sl = side_ncc(kf.left_patches[s], kf.left_patch_ok[s],
-                      cpat[..., :two], cok[..., :2])
-        sr = side_ncc(kf.right_patches[s], kf.right_patch_ok[s],
-                      cpat[..., two:], cok[..., 2:])
-        cd = cf_desc_lr[idx]
-        dl = DESC.min_cross_distance_dot(kf.left_desc[s], cd[..., :D2])
-        dr = DESC.min_cross_distance_dot(kf.right_desc[s], cd[..., D2:])
-        return torch.stack([sl, sr, dl, dr], -1)
-
-    sim_l, sim_r, dl, dr = _row_chunked(gate_rows, M).unbind(-1)
+    cf_patches = torch.cat([cf.left_patches, cf.right_patches],
+                           -1).to(torch.bfloat16)
+    cf_ok = torch.cat([cf.left_patch_ok, cf.right_patch_ok], -1)
+    cf_desc = torch.cat([cf.left_desc, cf.right_desc], -1)
+    sim_l, sim_r, dl, dr = P.dense_gates_temporal(
+        kf.left_patches, kf.left_patch_ok, kf.right_patches,
+        kf.right_patch_ok, kf.left_desc, kf.right_desc, cf_patches, cf_ok,
+        cf_desc, q.cf_idx, q.cmask, cfg.patch_size, fill_ncc=fill_ncc,
+        fill_dist=fill_dist)
     q = q._replace(cmask=q.cmask & (sim_l > cfg.temporal_ncc_thresh)
                    & (sim_r > cfg.temporal_ncc_thresh), ncc_l=sim_l)
     record(q)

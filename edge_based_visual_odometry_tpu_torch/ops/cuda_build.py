@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
-            "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0}
+            "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
+            "dense_gates": 0, "edge_patches": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +64,21 @@ _SIGNATURES = {
                                 + [_I] * 2 + [_F] * 4 + [_P] * 2),
     "edge_descriptors_maps_create": [_I, _I, _P],
     "edge_descriptors_info": [_P],
+    # K6 stereo: l_desc, r_desc, cand, cmask, N, C, l_pat, l_ok, r_pat,
+    # r_ok, P, sift, inv_pp, eps, eps2, fill_dist, fill_ncc, out, stream
+    "dense_gates_stereo_launch": ([_P] * 4 + [_I] * 2 + [_P] * 4 + [_I]
+                                  + [_F] * 6 + [_P] * 2),
+    # K6 temporal: KF patches and flags (left, right), KF descriptors, CF
+    # patches, flags, descriptors, cf_idx, cmask, M, C, P, inv_pp, eps,
+    # eps2, fill_ncc, fill_dist, out, stream
+    "dense_gates_temporal_launch": ([_P] * 11 + [_I] * 3 + [_F] * 5
+                                    + [_P] * 2),
+    # K6 flat: l_pat, l_ok, rows, r_pat, r_ok, live, F, P, inv_pp, eps,
+    # eps2, fill, out, stream
+    "dense_gates_flat_launch": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P] * 2,
+    # K7: img, H, W, x, y, theta, B, P, shift, tile, stride, out, ok, stream
+    "edge_patches_launch": ([_P, _I, _I] + [_P] * 3 + [_I] * 2 + [_F]
+                            + [_I] * 2 + [_P] * 3),
 }
 
 _lock = threading.Lock()
@@ -154,36 +170,44 @@ def lib() -> ctypes.CDLL:
 
 def check_kernel_ranges(cfg):
     """Raise ValueError, naming the field, where a `VOConfig` setting lies
-    outside what a hand-written kernel takes: K4's slots a row
+    outside what a hand-written kernel takes: K4's and K6's slots a row
     (`max_candidates`, `max_quad_candidates`), K5's 4 x 4 cells x 8 bins
-    and at most 16 x 16 samples, K2's and K3's odd patch size with
-    2 P^2 <= 128. The wrappers refuse such settings at their launch; the
-    pipeline's step builders call this on CUDA so that they fail at
-    construction. The plain twins (the CPU) take them all."""
+    and at most 16 x 16 samples (K6 reads its 2 x 128-bin output), the odd
+    patch size with 2 P^2 <= 128 of K2, K3, K6 and K7. The wrappers refuse
+    such settings at their launch; the pipeline's step builders call this
+    on CUDA so that they fail at construction. The plain twins (the CPU)
+    take them all."""
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 
     def refuse(field, why):
         raise ValueError(f"VOConfig.{field} = {getattr(cfg, field)!r}: {why}")
 
+    slots = min(CL.MAX_SLOTS, PAT.MAX_SLOTS)
     for field in ("max_candidates", "max_quad_candidates"):
-        if getattr(cfg, field) > CL.MAX_SLOTS:
-            refuse(field, f"K4 (cluster_edges) takes at most {CL.MAX_SLOTS} "
-                          f"slots a row")
+        if getattr(cfg, field) > slots:
+            refuse(field, f"K4 (cluster_edges) and K6 (dense_gates) take at "
+                          f"most {slots} slots a row")
+    # K6 reads K5's output: 2 halves of 4 x 4 cells x 8 bins
     if cfg.desc_spatial_bins ** 2 != DESC.K5_CELLS:
         refuse("desc_spatial_bins", "K5 (edge_descriptors) computes 4 x 4 "
-                                    "cells")
+                                    "cells, K6 (dense_gates) reads 128 bins "
+                                    "a half")
     if cfg.desc_orient_bins != DESC.K5_ORIENT:
         refuse("desc_orient_bins", f"K5 (edge_descriptors) computes "
-                                   f"{DESC.K5_ORIENT} orientation bins")
+                                   f"{DESC.K5_ORIENT} orientation bins, K6 "
+                                   f"(dense_gates) reads 128 bins a half")
     if cfg.desc_patch_samples ** 2 > DESC.MAX_SAMPLES:
         refuse("desc_patch_samples", f"K5 (edge_descriptors) takes at most "
                                      f"{DESC.MAX_SAMPLES} samples")
     P = cfg.patch_size
-    if P % 2 == 0 or 2 * P * P > GN.MAX_PATCH_SAMPLES:
-        refuse("patch_size", f"K2 and K3 take odd sizes with 2*P*P <= "
-                             f"{GN.MAX_PATCH_SAMPLES}")
+    side = min(GN.MAX_PATCH_SAMPLES // 2, PAT.MAX_SIDE)
+    if P % 2 == 0 or P * P > side:
+        refuse("patch_size", f"K2, K3 (GN), K6 (dense_gates) and K7 "
+                             f"(edge_patches) take odd sizes with P*P <= "
+                             f"{side}")
 
 
 def check(err: int, what: str):

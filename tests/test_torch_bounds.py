@@ -1,7 +1,7 @@
 """The bound arithmetic chip_smoke.py reports beside each kernel's time:
-work counted from the shapes (K1), from the iterations a launch ran
-(K2, K3) and from the active slots (K4), and the least time the card
-needs for it. chip_smoke.py imports
+work counted from the shapes (K1, K5, K7), from the iterations a launch
+ran (K2, K3) and from the active or live slots (K4, K6), and the least
+time the card needs for it. chip_smoke.py imports
 without CUDA; only its main() needs the card."""
 
 import numpy as np
@@ -150,3 +150,93 @@ def test_k5_work_at_production_shape(K, flops, nbytes, us):
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
     assert flops / C.PEAK_FLOPS > 3 * nbytes / C.PEAK_BYTES
+
+
+def test_k6_work_from_hand_made_masks():
+    """P = 7 (49 samples a side: 195 flops to centre one, 400 for an NCC's
+    4 pairings), a pair's distance 1,033 flops and a descriptor's |a|^2
+    510, formed once a descriptor. Stereo, two rows of 4 slots over a
+    5-row right table: one row with 3 live slots reading 2 distinct right
+    rows (0 and 2), 2 of those slots past the descriptor gate (rows 0 and
+    2 again); 512 bytes a descriptor, 394 a row's patches and flags, 8 an
+    index of a live slot; the mask (1 byte) and the 2 outputs (8 bytes)
+    of all 8 slots. Temporal, the same mask and indices into 5 CF rows:
+    both sides of each, a CF row 1,420 bytes (both descriptors, bf16
+    patches, 4 flags), 4 outputs a slot. Flat, 3 pairs, 2 live, both
+    reading left row 0: its patches centred once, each entry's right
+    patches once."""
+    m = np.array([[1, 1, 0, 1], [0, 0, 0, 0]], bool)
+    surv = np.array([[1, 0, 0, 1], [0, 0, 0, 0]], bool)
+    idx = np.array([[0, 2, 4, 2], [1, 3, 0, 4]])
+    assert C.k6_work("stereo", m, 49, idx, surv) == (
+        (1 + 2) * 510 + 3 * 1033 + (1 + 2) * 2 * 195 + 2 * 400,
+        8 * 9 + 3 * 8 + (1 + 2) * 512 + (1 + 2) * 394) == (6599, 2814)
+    assert C.k6_work("temporal", m, 49, idx) == (
+        (1 + 2) * 2 * (510 + 2 * 195) + 3 * 2 * (1033 + 400),
+        8 * 17 + 3 * 8 + 2 * (512 + 394) + 2 * (1024 + 392 + 4)) == (
+            13998, 4812)
+    assert C.k6_work("flat", np.array([1, 0, 1], bool), 49,
+                     np.array([0, 1, 0])) == (
+        2 * 195 + 2 * (2 * 195 + 400), 3 * 5 + 2 * (8 + 394) + 394) == (
+            1970, 1213)
+    assert C.k6_work("stereo", torch.from_numpy(m), 49, torch.from_numpy(idx),
+                     torch.from_numpy(surv)) == (6599, 2814)
+
+
+def test_k6_work_counts_a_candidate_row_once():
+    """A second live slot of a row that reads the same right row as the
+    first adds only its pair's distance, NCC and index; one that reads
+    another row adds that row's |b|^2, centring and bytes too."""
+    one = np.array([[1, 0]], bool)
+    both = np.array([[1, 1]], bool)
+    w1 = C.k6_work("stereo", one, 49, np.array([[0, 0]]), one)
+    same = C.k6_work("stereo", both, 49, np.array([[0, 0]]), both)
+    other = C.k6_work("stereo", both, 49, np.array([[0, 1]]), both)
+    assert (same[0] - w1[0], same[1] - w1[1]) == (1033 + 400, 8)
+    assert (other[0] - same[0], other[1] - same[1]) == (510 + 2 * 195,
+                                                        512 + 394)
+
+
+@pytest.mark.parametrize("kind,N,flops,nbytes,us,by", [
+    ("stereo", 32_768, 1_561_591_808, 77_201_408, 23.3073, "operations"),
+    ("temporal", 24_576, 2_342_387_712, 99_090_432, 34.9610, "operations"),
+    ("flat", 131_072, 116_326_400, 66_256_896, 19.7782, "bytes")])
+def test_k6_work_at_production_shape_every_slot_live(kind, N, flops, nbytes,
+                                                     us, by):
+    """`VOConfig()` with every slot live (and past the descriptor gate)
+    and every table row read: the most a call can need, ~1.6 GFLOP and
+    ~77 MB for the stereo call, whose operations and bytes then take
+    about as long (23.3 and 23.0 us). The main path's calls have a few
+    live slots a row and read part of the tables."""
+    live = np.ones((N, 32) if kind != "flat" else (N,), bool)
+    n_table = 32_768 if kind != "temporal" else 24_576
+    idx = ((np.arange(N)[:, None] + np.arange(32)) % n_table
+           if kind != "flat" else np.arange(N) % n_table)
+    args = (kind, live, 49, idx)
+    w = C.k6_work(*args, live) if kind == "stereo" else C.k6_work(*args)
+    assert w == (flops, nbytes)
+    b = C.bound(*w)
+    assert b["bound_by"] == by
+    assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
+
+
+def test_k7_work_from_a_hand_made_shape():
+    """Three edges of 2 x 49 samples on a 10 x 20 image: 33 flops a sample
+    and 14 an edge; the image once, 12 bytes in and 394 out an edge."""
+    assert C.k7_work(3, 49, 10, 20) == (3 * (98 * 33 + 14),
+                                        800 + 3 * 406) == (9744, 2018)
+    assert C.k7_work(0, 49, 376, 1241) == (0, 376 * 1241 * 4)
+
+
+@pytest.mark.parametrize("B,flops,nbytes,us", [
+    (32_768, 106_430_464, 15_170_272, 4.5284),     # left / right edges
+    (131_072, 425_721_856, 55_081_696, 16.4423),   # stage-11 centres
+    (24_576, 79_822_848, 11_844_320, 3.5356)])     # final mates
+def test_k7_work_at_production_shape(B, flops, nbytes, us):
+    """`VOConfig()` at 376 x 1241: bytes bound every call, the patches it
+    writes; a stereo step's four calls write ~87 MB."""
+    w = C.k7_work(B, 49, 376, 1241)
+    assert w == (flops, nbytes)
+    b = C.bound(*w)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4,
-K5) against their plain-PyTorch twins, on the card, and the paths through them (the pipeline, BA, the
-CLI, the NCCL pair step and its production memory). Every test here needs
-a CUDA device
-(marker `gpu`) and skips without one. The file imports no JAX, so it also
+K5, K6's three entries, K7) against their plain-PyTorch twins, on the
+card, and the paths through them (the pipeline, BA, the CLI, the NCCL
+pair step and its production memory). Every test here needs a CUDA
+device (marker `gpu`) and skips without one. The file imports no JAX, so it also
 runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -21,11 +21,14 @@ from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
+from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
+from scripts import k6_k7_jax_reference as K67
 from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
+from tests import gate_cases as GC
 
 pytestmark = pytest.mark.gpu
 
@@ -644,6 +647,162 @@ def test_edge_descriptors_dispatch_counts_one_launch(dev, monkeypatch):
     assert CB.LAUNCHES["edge_descriptors"] == before + 1
 
 
+def _same_f32(a, b):
+    """Bit-equal float32 tensors, a NaN equal to a NaN."""
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan()
+                                                           & b.isnan())
+    n_bad = int((~same).sum())
+    assert n_bad == 0, f"{n_bad} of {a.numel()} values not bit-equal"
+
+
+def _rows(case, n, seed, keys):
+    """The case's arrays of `keys` (one a row) at n rows, drawn from its
+    rows in a seeded order; the other arrays (the right tables) as they
+    are."""
+    pick = np.random.default_rng(seed).integers(0, GC.N_ROWS, n)
+    return {k: (v[pick] if k in keys else v) for k, v in case.items()}
+
+
+STEREO_ROWS = ("l_desc", "cand", "cmask", "l_pat", "l_ok")
+TEMPORAL_ROWS = ("kf_pat_l", "kf_ok_l", "kf_pat_r", "kf_ok_r", "kf_desc_l",
+                 "kf_desc_r", "cf_idx", "cmask")
+
+
+def _gates_same(dev, name, n, seed):
+    """K6's three entries against their twins run on the card at n rows
+    (n C flat pairs) of the case."""
+    s = C.gate_tensors(_rows(GC.stereo_case(name), n, seed, STEREO_ROWS),
+                       dev)
+    a, kw = C.k6_args("stereo", s)
+    k, p = (PAT.dense_gates_stereo_cuda(*a, **kw),
+            PAT.dense_gates_stereo_plain(*a, **kw))
+    t = C.gate_tensors(_rows(GC.temporal_case(name), n, seed,
+                             TEMPORAL_ROWS), dev)
+    a, kw = C.k6_args("temporal", t)
+    kt, pt = (PAT.dense_gates_temporal_cuda(*a, **kw),
+              PAT.dense_gates_temporal_plain(*a, **kw))
+    slots = s["cmask"].shape[1]
+    j = s["cand"].reshape(-1)
+    f = dict(l_pat=s["l_pat"], l_ok=s["l_ok"],
+             rows=torch.arange(n, device=dev).repeat_interleave(slots),
+             r_pat=s["r_pat"][j], r_ok=s["r_ok"][j],
+             live=s["cmask"].reshape(-1))
+    a, kw = C.k6_args("flat", f)
+    kf, pf = (PAT.dense_gates_flat_cuda(*a, **kw),
+              PAT.dense_gates_flat_plain(*a, **kw))
+    torch.cuda.synchronize()
+    for x, y in ((k[0], p[0]), (k[1], p[1]), (kt, pt), (kf, pf)):
+        _same_f32(x, y)
+    return k, kt, kf
+
+
+@pytest.mark.parametrize("name", GC.GATE_CASES)
+def test_dense_gates_kernel_matches_twin_bit_for_bit(dev, name):
+    """K6's stereo, temporal and flat entries against the twins run on the
+    card at 4,096 rows of each case of `tests/gate_cases.py`: every slot
+    bit-equal, the slots not computed holding the fill."""
+    k, kt, kf = _gates_same(dev, name, 4096, seed=1)
+    assert k[0].shape == (4096, GC._slots(name))
+    assert kt.shape == (4, 4096, GC._slots(name))
+
+
+@pytest.mark.parametrize("name", GC.GATE_CASES)
+@pytest.mark.parametrize("N", [0, 1, 4096])
+def test_dense_gates_kernel_small_shapes(dev, N, name):
+    _gates_same(dev, name, N, seed=N)
+
+
+def test_dense_gates_kernel_gives_exact_copies_distance_zero(dev):
+    """A candidate equal to the row, or with its halves swapped: kernel
+    and twin both give a distance of exactly 0 (the same lane order on
+    both sides of |a|^2 + |b|^2 - 2 a.b)."""
+    s = C.gate_tensors(GC.copies(), dev)
+    a, kw = C.k6_args("stereo", s)
+    k = PAT.dense_gates_stereo_cuda(*a, **kw)
+    p = PAT.dense_gates_stereo_plain(*a, **kw)
+    torch.cuda.synchronize()
+    _same_f32(k[0], p[0])
+    _same_f32(k[1], p[1])
+    rows = torch.arange(GC.N_ROWS, device=dev)[:, None]
+    exact = s["cmask"] & (s["cand"] == rows) & (rows % 3 < 2)
+    assert bool(exact.any()) and bool((k[0][exact] == 0).all())
+
+
+def test_dense_gates_kernel_matches_jax_reference(dev):
+    """K6 on the card against the JAX package's `min_cross_distance_dot`
+    and `ncc4` on every case of `tests/gate_cases.py`
+    (`tests/data/k6_k7_jax_reference.npz`, held current by a CPU test):
+    distances within the CPU tests' 0.05 on the live slots, NCC within
+    1e-5 of max(1, |b|) on the pairs K6 computed, NaN where JAX has NaN
+    (`chip_smoke.k6_against_jax`)."""
+    res = C.k6_against_jax(dev)
+    assert set(res) == set(GC.GATE_CASES)
+    assert all(n_bad == 0 for n_bad, _, _ in res.values()), res
+
+
+def _patch_args(name, B, dev, seed=0, patch_size=GC.P):
+    img, edges = GC.patch_case(name, B, seed)
+    return ((torch.from_numpy(img).to(dev),
+             *(torch.from_numpy(e).to(dev) for e in edges), patch_size,
+             GC.SHIFT), {})
+
+
+@pytest.mark.parametrize("name", GC.PATCH_CASES)
+@pytest.mark.parametrize("B,patch_size", [(4096, 7), (0, 7), (1, 7),
+                                          (1000, 5), (777, 3)])
+def test_edge_patches_kernel_matches_twin_bit_for_bit(dev, name, B,
+                                                      patch_size):
+    """K7 against the twin run on the card on each case of
+    `tests/gate_cases.py`: patches bit-equal (NaN equal to NaN), ok flags
+    equal; also at no edge, one edge and P = 5, 3 (lanes past the
+    samples)."""
+    a, kw = _patch_args(name, B, dev, seed=B, patch_size=patch_size)
+    k = PAT.edge_patches_cuda(*a, **kw)
+    p = PAT.edge_patches_plain(*a, **kw)
+    torch.cuda.synchronize()
+    _same_f32(k[0], p[0])
+    assert k[1].dtype == torch.bool and bool((k[1] == p[1]).all())
+    assert k[0].shape == (B, 2 * patch_size * patch_size)
+
+
+def test_edge_patches_kernel_matches_jax_reference(dev):
+    """K7 on the card against the JAX package's `edge_patches_tiled` on
+    every patch case of `tests/gate_cases.py` (the same file): values
+    within 1e-5 of max(1, |b|), NaN where JAX has NaN, ok flags equal
+    (`chip_smoke.k7_against_jax`)."""
+    res = C.k7_against_jax(dev)
+    assert set(res) == set(GC.PATCH_CASES)
+    assert all(n == 0 and n_ok == 0 for n, _, n_ok in res.values()), res
+
+
+def test_dense_gates_and_patches_dispatch_count_one_launch(dev, monkeypatch):
+    s = C.gate_tensors(GC.stereo_case("interior"), dev)
+    a, kw = C.k6_args("stereo", s)
+    t = C.gate_tensors(GC.temporal_case("interior"), dev)
+    at, kwt = C.k6_args("temporal", t)
+    pa, pkw = _patch_args("interior", 64, dev)
+    before = dict(CB.LAUNCHES)
+    PAT.dense_gates_stereo(*a, **kw)
+    PAT.dense_gates_temporal(*at, **kwt)
+    PAT.edge_patches(*pa, **pkw)
+    PAT.edge_patches_flat(*pa, **pkw)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 2
+    assert CB.LAUNCHES["edge_patches"] == before["edge_patches"] + 2
+
+    def no_build():
+        raise AssertionError("CPU tensors must not build or launch a kernel")
+
+    monkeypatch.setattr(CB, "lib", no_build)
+    PAT.dense_gates_stereo(*(x.cpu() if torch.is_tensor(x) else x
+                             for x in a), **kw)
+    PAT.edge_patches_flat(*(x.cpu() if torch.is_tensor(x) else x
+                            for x in pa), **pkw)
+    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 2
+    assert CB.LAUNCHES["edge_patches"] == before["edge_patches"] + 2
+
+
 def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     seq = S.make_sequence(3, 120, 160)
     cfg = VOConfig(**SMALL)
@@ -664,6 +823,10 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert n_gpu["cluster_edges"] == 5
     # K5: left edges, right edges and mates in each of the 3 stereo steps
     assert n_gpu["edge_descriptors"] == 9
+    # K6: stages 4-5 and stage 11 of each stereo step, once a temporal step
+    assert n_gpu["dense_gates"] == 3 * 2 + 2
+    # K7: left edges, right edges, stage 11 and mates of each stereo step
+    assert n_gpu["edge_patches"] == 3 * 4
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()

@@ -51,16 +51,22 @@ Phases (each passes or exits non-zero):
      card, bit for bit on every slot (the slots not computed holding their
      fill), on the operands of frame 2's stereo call (stages 4-5), its
      stage-11 call (the flat pair list) and its temporal call; each call
-     timed with its wrapper and as launches alone (a CUDA graph), beside
-     its bound over the live pairs and the twin, its live slots counted; K6
-     against the JAX package's `ncc4` and `min_cross_distance_dot` on
-     every case of tests/gate_cases.py (tests/data/
-     k6_k7_jax_reference.npz, within the CPU tests' tolerances);
+     timed with its wrapper and as launches alone (a CUDA graph; the
+     stereo and temporal calls' prep pass included), beside its bound over
+     the live pairs and the twin, its live slots counted; each kernel's
+     registers, spills and warps an SM; K6 against the JAX package's
+     `ncc4` and `min_cross_distance_dot` on every case of
+     tests/gate_cases.py (tests/data/k6_k7_jax_reference.npz, within the
+     CPU tests' tolerances; `scripts/k6_variants.py` times other forms of
+     it);
  6f. K7 (two-side edge patches) vs its plain twin run on the card, bit for
      bit, on frame 2's four calls (left edges, right edges, the stage-11
-     centres, the final mates); each call timed with its wrapper and as
-     launches alone, beside its bound and the twin; K7 against the JAX package's `edge_patches_tiled` on every
-     patch case of tests/gate_cases.py (the same file);
+     centres, on their live entries only, the final mates); each call
+     timed with its wrapper and as launches alone, beside its bound (the
+     stage-11 call's over its live entries) and the twin; its registers,
+     local bytes and warps an SM; K7 against the JAX package's
+     `edge_patches_tiled` on every patch case of tests/gate_cases.py (the
+     same file);
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -90,8 +96,9 @@ Phases (each passes or exits non-zero):
 On every path (6-10) the active K3 lanes are checked for a finite
 delta, and the lanes ended by the singular-lane guard are counted; K4 is
 launched once per stereo step and once per temporal step, K5 three times
-per stereo step, K6 twice per stereo step (stages 4-5, stage 11) and
-once per temporal step, K7 four times per stereo step.
+per stereo step, K6 three times per stereo step (stages 4-5: the prep
+pass and the gates; stage 11) and twice per temporal step (the prep pass
+and the gates), K7 four times per stereo step.
 Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
@@ -221,10 +228,11 @@ K5_KEYPOINT_OUT_BYTES = 128 * 2
 # subtractions, pp squares and their pp - 1 adds, once a side (a row's, a
 # distinct candidate row's; the flat call's right sides once an entry);
 # each of the 4 pairings of an NCC adds pp products (2 pp - 1) and takes
-# a product, sqrt and division. (The kernel forms a candidate's terms
-# again for each pair that reads it; that is not counted.) Bytes: the
-# mask read and the outputs written in full, the index of each live
-# slot, and each table row a live pair needs, once.
+# a product, sqrt and division. (The kernel's prep pass forms the terms
+# of every row of the candidate table, read or not; only the rows a live
+# pair reads are counted.) Bytes: the mask read and the outputs written
+# in full, the index of each live slot, and each table row a live pair
+# needs, once.
 K6_DESC_PAIR_FLOPS = 2 * 256 + 2 * 254 + 4 * 3 + 1
 K6_DESC_ROW_FLOPS = 2 * (128 + 127)
 
@@ -242,7 +250,8 @@ def k6_pair_flops(pp):
 # 4 sums), 16 tap (the tile clamp's 2, the 4 weights' 10, the 4 indices'
 # sums), 9 bilinear; per edge sin and cos (as 1 each), the 2 shifts, the
 # 4 centres and the 2 tile origins (3 each). Bytes: the image once; per
-# edge x, y, theta in, its 2 P^2 floats and 2 flags out.
+# live edge x, y, theta in, its 2 P^2 floats and 2 flags out (and the
+# live flags, where the call has them).
 K7_SAMPLE_FLOPS = 8 + 16 + 9
 K7_EDGE_FLOPS = 2 + 2 + 4 + 6
 
@@ -357,11 +366,14 @@ def k6_work(kind, live, pp, idx, survivors=None):
     return flops, nbytes
 
 
-def k7_work(B, pp, H, W):
+def k7_work(B, pp, H, W, live=None):
     """(flops, bytes) of one K7 launch over B edges of 2 pp samples on an
-    H x W image."""
-    flops = B * (2 * pp * K7_SAMPLE_FLOPS + K7_EDGE_FLOPS)
-    return flops, H * W * 4 + B * (3 * 4 + 2 * pp * 4 + 2)
+    H x W image; with `live` (a (B,) mask), over its live edges."""
+    n = B if live is None else int(np.count_nonzero(
+        np.asarray(live.cpu() if isinstance(live, torch.Tensor) else live)))
+    flops = n * (2 * pp * K7_SAMPLE_FLOPS + K7_EDGE_FLOPS)
+    return flops, (H * W * 4 + n * (3 * 4 + 2 * pp * 4 + 2)
+                   + (0 if live is None else B))
 
 
 def gate_errors(a, b, mask, tol, relative=False):
@@ -1334,6 +1346,14 @@ def phase_k6(gate_ops, card):
               f"{row['pct_of_bound']:.1f}% of it alone, "
               f"{row['pct_of_bound_with_wrapper']:.1f}% with the wrapper "
               f"[{card}]")
+    info = PAT.k6_info()
+    for name in PAT.K6_KERNELS:
+        i = info[name]
+        print(f"K6 {name} kernel: {i['registers']} registers, "
+              f"{i['local_bytes']} local (spill) bytes, "
+              f"{i['shared_bytes']} B shared a block, {i['warps_per_sm']} "
+              f"warps an SM; {info['slots_a_step']} slots a warp step")
+        check(i["local_bytes"] == 0, f"K6 {name} kernel spills")
     jax_cmp = k6_against_jax(gate_ops["stereo"][0][0].device)
     for name, (n_bad, d_err, n_err) in jax_cmp.items():
         print(f"K6 against JAX's min_cross_distance_dot / ncc4, case {name}: "
@@ -1356,6 +1376,7 @@ def phase_k6(gate_ops, card):
         replaces="edge_based_visual_odometry_tpu/ops/patches.py:186",
         max_abs_err=err, library_ms=None,
         plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
+        info=info,
         against_jax_max_err={"distance": max(v[1] for v in jax_cmp.values()),
                              "ncc": max(v[2] for v in jax_cmp.values())},
         **frame)
@@ -1378,25 +1399,33 @@ def phase_k7(patch_ops, card):
         B = a[1].shape[0]
         H, W = a[0].shape
         pp = a[4] * a[4]
+        live = kw.get("live")
+        twin_kw = {k_: v for k_, v in kw.items() if k_ != "live"}
+        check((live is not None) == (name == "stage-11 centres"),
+              f"K7 {name} call: a live mask {'missing' if live is None else 'given'}")
         k = PAT.edge_patches_cuda(*a, **kw)
-        p = PAT.edge_patches_plain(*a, **kw)
+        p = PAT.edge_patches_plain(*a, **twin_kw)
         torch.cuda.synchronize()
+        if live is not None:         # a dead entry's row is unspecified
+            k, p = (k[0][live], k[1][live]), (p[0][live], p[1][live])
         n_bad = f32_differ(k[0], p[0]) + int((k[1] != p[1]).sum())
-        check(n_bad == 0, f"K7 {name} call ({B} edges): {n_bad} values or "
-                          f"flags differ from the twin")
+        n_live = B if live is None else int(live.sum())
+        check(n_bad == 0, f"K7 {name} call ({n_live} of {B} edges): {n_bad} "
+                          f"values or flags differ from the twin")
         fin = k[0].isfinite()
         if bool(fin.any()):
             err = max(err, float((k[0] - p[0]).abs()[fin].max()))
         row = launch_bound(
             cuda_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
             graph_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
-            *k7_work(B, pp, H, W))
+            *k7_work(B, pp, H, W, live))
         row.update(plain_ms=cuda_ms(
-            lambda: PAT.edge_patches_plain(*a, **kw), 2),
-            edges=B, ok_sides=int(k[1].sum()))
+            lambda: PAT.edge_patches_plain(*a, **twin_kw), 2),
+            edges=B, live=n_live, ok_sides=int(k[1].sum()))
         calls[name] = row
-        print(f"K7 edge_patches, {name} ({B} edges, {row['ok_sides']} sides "
-              f"ok): bit-equal to its twin on the card; kernel "
+        print(f"K7 edge_patches, {name} ({n_live} live of {B} edges, "
+              f"{row['ok_sides']} sides ok): bit-equal to its twin on the "
+              f"card on the live edges; kernel "
               f"{row['launch_ms']:.4f} ms launched alone, {row['ms']:.4f} "
               f"ms with its wrapper, twin {row['plain_ms']:.3f} ms; bound "
               f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}: "
@@ -1404,6 +1433,12 @@ def phase_k7(patch_ops, card):
               f"{row['pct_of_bound']:.1f}% of it alone, "
               f"{row['pct_of_bound_with_wrapper']:.1f}% with the wrapper "
               f"[{card}]")
+    info = PAT.k7_info()
+    print(f"K7 kernel: {info['registers']} registers, {info['local_bytes']} "
+          f"local bytes (sinf's and cosf's argument reduction), "
+          f"{info['shared_bytes']} B shared a block of "
+          f"{info['edges_per_block']} edges, {info['warps_per_sm']} warps an "
+          f"SM")
     jax_cmp = k7_against_jax(patch_ops[0][0][0].device)
     for name, (n_bad, e, n_ok) in jax_cmp.items():
         print(f"K7 against JAX's edge_patches_tiled, case {name}: {n_bad} "
@@ -1426,7 +1461,8 @@ def phase_k7(patch_ops, card):
         replaces="edge_based_visual_odometry_tpu/ops/patches.py:125",
         max_abs_err=err, library_ms=None,
         plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
-        against_jax_max_err=max(v[1] for v in jax_cmp.values()), **step)
+        info=info, against_jax_max_err=max(v[1] for v in jax_cmp.values()),
+        **step)
 
 
 def phase_sequence(seq, images, card, work_dir):
@@ -2157,8 +2193,9 @@ def main():
         # K5: left edges, right edges, final mates
         check(dl["edge_descriptors"] == 3,
               f"frame {k}: K5 launched {dl['edge_descriptors']} times")
-        # K6: stages 4-5 and stage 11, and the temporal step's gates
-        check(dl["dense_gates"] == (3 if k else 2),
+        # K6: stages 4-5 (the prep pass and the gates) and stage 11, and
+        # the temporal step's prep pass and gates
+        check(dl["dense_gates"] == (5 if k else 3),
               f"frame {k}: K6 launched {dl['dense_gates']} times")
         # K7: left edges, right edges, stage-11 centres, final mates
         check(dl["edge_patches"] == 4,
@@ -2264,17 +2301,17 @@ def main():
     print("K5 launches per path (3 a stereo step): "
           + "; ".join(f"{p} {c['edge_descriptors']}"
                       for p, c in by_path.items()))
-    # K6 twice per stereo step and once per temporal step, K7 four times
-    # per stereo step
+    # K6 three times per stereo step and twice per temporal step (each
+    # prep pass one launch), K7 four times per stereo step
     for path, c in by_path.items():
         steps = (c["toed_gradient_field"], c["refine_2dof"] // 2)
-        check(c["dense_gates"] == 2 * steps[0] + steps[1],
+        check(c["dense_gates"] == 3 * steps[0] + 2 * steps[1],
               f"{path}: K6 launched {c['dense_gates']} times for {steps[0]} "
               f"stereo and {steps[1]} temporal steps")
         check(c["edge_patches"] == 4 * steps[0],
               f"{path}: K7 launched {c['edge_patches']} times for "
               f"{steps[0]} stereo steps")
-    print("K6 / K7 launches per path (2 a stereo and 1 a temporal step / 4 "
+    print("K6 / K7 launches per path (3 a stereo and 2 a temporal step / 4 "
           "a stereo step): " + "; ".join(
               f"{p} {c['dense_gates']} / {c['edge_patches']}"
               for p, c in by_path.items()))

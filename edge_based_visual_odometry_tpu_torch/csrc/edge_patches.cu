@@ -17,25 +17,34 @@
 //     index 0 with its NaN weights;
 //   - a side's ok flag: every sample's floor and ceil inside the image.
 // Output: row e of the (B, 2 P^2) float32 patches [plus | minus] and of
-// the (B, 2) ok flags.
+// the (B, 2) ok flags. With a `live` mask (B,) (stage 11's flat list,
+// whose live entries are a prefix), a dead edge is neither sampled nor
+// written: its rows hold whatever the buffer held.
 //
-// What bounds it on the card: bytes. A stereo step's four calls (221,184
-// edges) write 87 MB of patches and read ~2.7 MB of edges and the two
-// images (~27 us at 3.35 TB/s), against ~0.8 GFLOP (~12 us at 67
-// TFLOP/s) (chip_smoke.py `k7_work`).
+// What bounds it on the card: bytes. A stereo step's four calls write
+// their live edges' patches and read the edges and the two images
+// (chip_smoke.py `k7_work`, over the live entries of stage 11's call).
 //
-// Design: one warp an edge, the 2 P^2 <= 128 samples spread over its lanes
-// as K2 spreads them (sample s = lane + 32 k, k < 4, gn_common.cuh; the
-// slots carry no branches), so a row of the output is written by
-// consecutive lanes; the image is read
-// through the read-only cache (a warp's samples lie in one 32 x 32 tile);
-// the ok flags are two warp ballots. No shared memory, no atomics.
+// Design: a block takes kEdges edges. First one thread an edge forms the
+// edge's terms once (sinf, cosf, the two shifted centres, the tile
+// origins) into shared memory, beside a table of the 2 P^2 samples'
+// offsets; a block whose edges are all dead returns there. Then the
+// block's threads sweep its kEdges x 2 P^2 contiguous output floats, two
+// samples of one edge a thread a step (one 8-byte store; the edge's
+// terms read once for both): no idle slot, coalesced stores, and a
+// thread keeps several independent gathers in flight. The image is read
+// through the read-only cache. A sample outside the image sets its side's
+// bit of the edge's flag word (a shared atomicOr, rare); the flags are
+// written once the sweep is done. (The first form, one warp an edge,
+// computed each edge's terms on all 32 lanes and kept 30 of its 128
+// sample slots idle: PERF.md.)
 //
 // Arithmetic is written with round-to-nearest intrinsics (no FMA
 // contraction), NaN-keeping clamps and the twin's operation order
 // (`edge_patches_plain`: `orthogonal_shifted_points`,
 // `rotated_patch_coords`, `sample_tile_clamped`); sinf and cosf are the
-// functions torch.sin and torch.cos call on the card.
+// functions torch.sin and torch.cos call on the card, and a term formed
+// once has the bits it had when every lane formed it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,62 +54,151 @@
 
 namespace {
 
+using gn::add;
 using gn::mul;
+using gn::sub;
 
-constexpr int kWarps = 8;            // edges a block, one warp each
+constexpr int kThreads = 256;
+constexpr int kEdges = 32;           // edges a block
+constexpr int kMaxSamples = 128;     // 2 P^2
 
-__global__ void __launch_bounds__(kWarps * 32)
+// an edge's terms, formed once
+struct EdgeTerms {
+  float ct, st;                      // cos t, sin t
+  float cxp, cyp, cxm, cym;          // the plus and minus centres
+  float ox, oy;                      // the atlas tile's origin
+};
+
+__global__ void __launch_bounds__(kThreads)
 edge_patches_kernel(const float* __restrict__ img, int H, int W,
                     const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ theta, int B, int P,
+                    const float* __restrict__ theta,
+                    const uint8_t* __restrict__ live, int B, int P,
                     float shift, int tile, int stride,
                     float* __restrict__ out, uint8_t* __restrict__ ok) {
-  const int lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (e >= B) return;                // whole warps only
-  const gn::Slots sl = gn::make_slots(lane, P);
-  const float th = __ldg(theta + e);
-  const float st = sinf(th), ct = cosf(th);
-  const gn::Rotated r = gn::rotate(sl, ct, st);
-  const float ex = __ldg(x + e), ey = __ldg(y + e);
-  // plus = (x + m sin t, y - m cos t): y + (-(m cos t)) is y - m cos t
-  const float nsx = mul(shift, st), nsy = -mul(shift, ct);
-  const float ox = gn::tile_origin(ex, tile, stride, W);
-  const float oy = gn::tile_origin(ey, tile, stride, H);
+  __shared__ EdgeTerms edge[kEdges];
+  __shared__ float off_i[kMaxSamples], off_j[kMaxSamples];
+  __shared__ bool plus_side[kMaxSamples];
+  __shared__ unsigned bad[kEdges];   // bit 0 plus, bit 1 minus
+  __shared__ bool alive[kEdges];
+  const int tid = threadIdx.x;
+  const int e0 = blockIdx.x * kEdges;
+  const int pp = P * P, n2 = 2 * pp, half = P / 2;
+  if (tid < kEdges) {
+    const int e = e0 + tid;
+    const bool on = e < B && (live == nullptr || live[e] != 0);
+    alive[tid] = on;
+    bad[tid] = 0u;
+    if (on) {
+      const float th = __ldg(theta + e);
+      const float st = sinf(th), ct = cosf(th);
+      const float ex = __ldg(x + e), ey = __ldg(y + e);
+      // plus = (x + m sin t, y - m cos t): y + (-(m cos t)) is y - m cos t
+      const float nsx = mul(shift, st), nsy = -mul(shift, ct);
+      EdgeTerms t;
+      t.ct = ct;
+      t.st = st;
+      t.cxp = add(ex, nsx);
+      t.cyp = add(ey, nsy);
+      t.cxm = sub(ex, nsx);
+      t.cym = sub(ey, nsy);
+      t.ox = gn::tile_origin(ex, tile, stride, W);
+      t.oy = gn::tile_origin(ey, tile, stride, H);
+      edge[tid] = t;
+    }
+  }
+  // the samples' offsets (i, j) and sides, as gn::make_slots forms them
+  for (int s = tid; s < n2; s += kThreads) {
+    const int q = s < pp ? s : s - pp;
+    off_i[s] = (float)(q / P - half);
+    off_j[s] = (float)(q % P - half);
+    plus_side[s] = s < pp;
+  }
+  const bool any_alive = __syncthreads_or(tid < kEdges && alive[tid]);
+  if (!any_alive) return;            // every edge of the block is dead
   const float t1 = (float)(tile - 1);
   const float xmax = (float)(W - 1), ymax = (float)(H - 1);
-  float* row = out + (size_t)e * 2 * P * P;
-  bool bad_p = false, bad_m = false;
+  const int n_edges = min(kEdges, B - e0);
+  // thread tid takes sample pairs tid, tid + kThreads, ... of the
+  // block's contiguous rows (2 P^2 is even, so a pair lies in one row);
+  // (e, q), the pair's row and its first sample's half-index, follow
+  // that index without a division a step
+  const int total = n_edges * pp;
+  int e = tid / pp, q = tid - e * pp;
+  const int step_e = kThreads / pp, step_q = kThreads - step_e * pp;
+  float2* const base = reinterpret_cast<float2*>(out + (size_t)e0 * n2);
+#pragma unroll 2
+  for (int f = tid; f < total; f += kThreads) {
+    if (alive[e]) {
+      const EdgeTerms t = edge[e];
+      float v[2];
+      unsigned flags = 0u;
 #pragma unroll
-  for (int k = 0; k < gn::NS; ++k) {
-    // a slot past the 2 P^2 samples computes sample 0 and keeps nothing
-    float px, py;
-    gn::slot_xy(sl, r, k, ex, ey, nsx, nsy, &px, &py);
-    const float v =
-        gn::read_global(img, gn::make_tap(px, py, ox, oy, t1, H, W));
-    const bool out_ = !(floorf(px) >= 0.0f && floorf(py) >= 0.0f
-                        && ceilf(px) <= xmax && ceilf(py) <= ymax);
-    if (sl.has[k]) row[lane + 32 * k] = v;
-    bad_p = bad_p || (sl.has[k] && out_ && sl.sgn[k] > 0);
-    bad_m = bad_m || (sl.has[k] && out_ && sl.sgn[k] < 0);
+      for (int k = 0; k < 2; ++k) {
+        const int s = 2 * q + k;
+        const float oi = off_i[s], oj = off_j[s];
+        const bool plus = plus_side[s];
+        // gn::slot_xy over gn::rotate's terms
+        const float cx = plus ? t.cxp : t.cxm;
+        const float cy = plus ? t.cyp : t.cym;
+        const float px = sub(add(cx, mul(t.ct, oi)), mul(t.st, oj));
+        const float py = add(add(cy, mul(t.st, oi)), mul(t.ct, oj));
+        v[k] = gn::read_global(img,
+                               gn::make_tap(px, py, t.ox, t.oy, t1, H, W));
+        // floor(p) >= 0 and ceil(p) <= n - 1 (an integer) hold exactly
+        // where p >= 0 and p <= n - 1, and neither for a NaN
+        if (!(px >= 0.0f && py >= 0.0f && px <= xmax && py <= ymax))
+          flags |= plus ? 1u : 2u;
+      }
+      base[f] = make_float2(v[0], v[1]);
+      if (flags) atomicOr(&bad[e], flags);
+    }
+    q += step_q;
+    e += step_e;
+    if (q >= pp) {
+      q -= pp;
+      ++e;
+    }
   }
-  const unsigned any_p = __ballot_sync(0xffffffffu, bad_p);
-  const unsigned any_m = __ballot_sync(0xffffffffu, bad_m);
-  if (lane < 2) ok[2 * (size_t)e + lane] = (lane ? any_m : any_p) == 0u;
+  __syncthreads();
+  if (tid < 2 * n_edges) {
+    const int k = tid >> 1, side = tid & 1;
+    if (alive[k])
+      ok[2 * (size_t)(e0 + k) + side] = ((bad[k] >> side) & 1u) == 0u;
+  }
 }
 
 }  // namespace
 
 extern "C" int edge_patches_launch(const float* img, int H, int W,
                                    const float* x, const float* y,
-                                   const float* theta, int B, int P,
-                                   float shift, int tile, int stride,
-                                   float* out, uint8_t* ok,
+                                   const float* theta, const uint8_t* live,
+                                   int B, int P, float shift, int tile,
+                                   int stride, float* out, uint8_t* ok,
                                    cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || 2 * P * P > 32 * gn::NS || H <= 0 || W <= 0)
+  if (P <= 0 || 2 * P * P > kMaxSamples || H <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
-  edge_patches_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      img, H, W, x, y, theta, B, P, shift, tile, stride, out, ok);
+  edge_patches_kernel<<<(B + kEdges - 1) / kEdges, kThreads, 0, stream>>>(
+      img, H, W, x, y, theta, live, B, P, shift, tile, stride, out, ok);
   return (int)cudaGetLastError();
+}
+
+// What the built kernel is on this card: out[0..4] = edges a block,
+// registers a thread, local (spill) bytes a thread, static shared bytes a
+// block, blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int edge_patches_info(int* out) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaFuncGetAttributes(&a, edge_patches_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, edge_patches_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kEdges;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)a.sharedSizeBytes;
+  out[4] = per_sm;
+  return 0;
 }

@@ -451,8 +451,10 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     lin = rows * C + slots
     fx, fy, ft = (t.reshape(-1)[lin]
                   for t in (state.cx, state.cy, state.ctheta))
+    # K7 samples the live entries only (a prefix of the list); K6 reads
+    # none of the others
     f_patches, f_patch_ok = P.edge_patches_flat(frame.right, fx, fy, ft,
-                                                psize, pshift)
+                                                psize, pshift, live=fmask)
     just_pass = cfg.ncc_thresh + 1e-6
     sim_f = P.dense_gates_flat(l_patches, l_patch_ok, rows, f_patches,
                                f_patch_ok, fmask, psize, fill=just_pass)

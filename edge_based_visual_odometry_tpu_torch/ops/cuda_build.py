@@ -65,20 +65,24 @@ _SIGNATURES = {
     "edge_descriptors_maps_create": [_I, _I, _P],
     "edge_descriptors_info": [_P],
     # K6 stereo: l_desc, r_desc, cand, cmask, N, C, l_pat, l_ok, r_pat,
-    # r_ok, P, sift, inv_pp, eps, eps2, fill_dist, fill_ncc, out, stream
-    "dense_gates_stereo_launch": ([_P] * 4 + [_I] * 2 + [_P] * 4 + [_I]
-                                  + [_F] * 6 + [_P] * 2),
+    # r_ok, Nr, r_terms, P, sift, inv_pp, eps, eps2, fill_dist, fill_ncc,
+    # out, stream
+    "dense_gates_stereo_launch": ([_P] * 4 + [_I] * 2 + [_P] * 4
+                                  + [_I, _P, _I] + [_F] * 6 + [_P] * 2),
     # K6 temporal: KF patches and flags (left, right), KF descriptors, CF
-    # patches, flags, descriptors, cf_idx, cmask, M, C, P, inv_pp, eps,
-    # eps2, fill_ncc, fill_dist, out, stream
-    "dense_gates_temporal_launch": ([_P] * 11 + [_I] * 3 + [_F] * 5
-                                    + [_P] * 2),
+    # patches, flags, descriptors, Mc, cf_terms, cf_idx, cmask, M, C, P,
+    # inv_pp, eps, eps2, fill_ncc, fill_dist, out, stream
+    "dense_gates_temporal_launch": ([_P] * 9 + [_I] + [_P] * 3 + [_I] * 3
+                                    + [_F] * 5 + [_P] * 2),
     # K6 flat: l_pat, l_ok, rows, r_pat, r_ok, live, F, P, inv_pp, eps,
     # eps2, fill, out, stream
     "dense_gates_flat_launch": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P] * 2,
-    # K7: img, H, W, x, y, theta, B, P, shift, tile, stride, out, ok, stream
-    "edge_patches_launch": ([_P, _I, _I] + [_P] * 3 + [_I] * 2 + [_F]
+    "dense_gates_info": [_P],
+    # K7: img, H, W, x, y, theta, live (or null), B, P, shift, tile,
+    # stride, out, ok, stream
+    "edge_patches_launch": ([_P, _I, _I] + [_P] * 4 + [_I] * 2 + [_F]
                             + [_I] * 2 + [_P] * 3),
+    "edge_patches_info": [_P],
 }
 
 _lock = threading.Lock()

@@ -11,14 +11,18 @@ bilinear sampling; for the GN refiners it bounds the travel.
 Two hand-written kernels sit behind this module's wrappers, which send a
 CUDA tensor to the kernel and a CPU tensor to its plain twin:
   - K7 (`csrc/edge_patches.cu`): `edge_patches` / `edge_patches_flat`,
-    twin `edge_patches_plain`;
+    twin `edge_patches_plain`; given a `live` mask (stage 11's flat
+    list), K7 samples the live edges only;
   - K6 (`csrc/dense_gates.cu`): the stereo cascade's descriptor gate and
     NCC (stages 4-5, `dense_gates_stereo`), its post-cluster NCC over
     a flat pair list (stage 11, `dense_gates_flat`) and the temporal
     cascade's NCC and descriptor gates (`dense_gates_temporal`); twins
     `dense_gates_*_plain`. They write only the live slots of the mask
     they are given; every other slot gets the fill the caller names
-    (the value its state held before the stage).
+    (the value its state held before the stage). The stereo and
+    temporal entries launch a prep pass over the candidate table first
+    (each row's centring and |b|^2 formed once), so they count two
+    launches.
 The twins do their float arithmetic in the kernels' order, so each
 agrees with its kernel bit for bit on the card:
   - a sum over one side of a patch (P*P <= 64 samples): sample s on lane
@@ -33,6 +37,8 @@ the tests hold the twins against them and against JAX.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -201,12 +207,22 @@ def _check_patch_size(what, patch_size):
                          f"odd sizes with P*P <= {MAX_SIDE}")
 
 
+def _patch_outputs(B: int, patch_size: int, dev):
+    """K7's outputs, (B, 2 P^2) float32 patches and (B, 2) ok flags, as
+    allocated: not initialised."""
+    return (torch.empty((B, 2 * patch_size * patch_size), dtype=torch.float32,
+                        device=dev),
+            torch.empty((B, 2), dtype=torch.bool, device=dev))
+
+
 def edge_patches_cuda(img, x, y, theta, patch_size: int, shift_mag: float,
-                      tile: int = 32, stride: int = 8):
+                      tile: int = 32, stride: int = 8, live=None):
     """The hand-written kernel (csrc/edge_patches.cu, K7): same contract as
     `edge_patches_plain`, for a contiguous float32 (H, W) image and (B,)
     edges on the card, an odd P with P*P <= 64 and a power-of-two atlas
-    stride; one launch."""
+    stride; one launch. With `live`, a (B,) bool mask on the card, only
+    the live edges are sampled and written: a dead edge's patch row and
+    ok flags are unspecified (whatever the new buffers held)."""
     dev = x.device
     if not x.is_cuda:
         raise ValueError(f"edge_patches_cuda: needs CUDA tensors, got them "
@@ -226,29 +242,46 @@ def edge_patches_cuda(img, x, y, theta, patch_size: int, shift_mag: float,
     CB.require(img, "img", torch.float32, (H, W), dev)
     for name, t in (("x", x), ("y", y), ("theta", theta)):
         CB.require(t, name, torch.float32, (B,), dev)
-    pat = torch.empty((B, 2 * patch_size * patch_size), dtype=torch.float32,
-                      device=dev)
-    ok = torch.empty((B, 2), dtype=torch.bool, device=dev)
+    if live is not None:
+        CB.require(live, "live", torch.bool, (B,), dev)
+    pat, ok = _patch_outputs(B, patch_size, dev)
     if B == 0:
         return pat, ok
     with torch.cuda.device(dev):
         err = CB.lib().edge_patches_launch(
             img.data_ptr(), H, W, x.data_ptr(), y.data_ptr(),
-            theta.data_ptr(), B, patch_size, shift_mag, tile, stride,
-            pat.data_ptr(), ok.data_ptr(), CB.stream_ptr(dev))
+            theta.data_ptr(), 0 if live is None else live.data_ptr(), B,
+            patch_size, shift_mag, tile, stride, pat.data_ptr(),
+            ok.data_ptr(), CB.stream_ptr(dev))
     CB.check(err, "edge_patches")
     CB.LAUNCHES["edge_patches"] += 1
     return pat, ok
 
 
+def k7_info():
+    """What the built K7 is on this card: edges a block, registers a
+    thread, local (spill) bytes a thread, static shared bytes a block,
+    blocks and warps an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
+    8 warps a block)."""
+    buf = (ctypes.c_int * 5)()
+    CB.check(CB.lib().edge_patches_info(ctypes.addressof(buf)),
+             "edge_patches_info")
+    return dict(edges_per_block=buf[0], registers=buf[1],
+                local_bytes=buf[2], shared_bytes=buf[3],
+                blocks_per_sm=buf[4], warps_per_sm=8 * buf[4])
+
+
 def edge_patches_flat(img, x, y, theta, patch_size: int, shift_mag: float,
-                      tile: int = 32, stride: int = 8, chunk: int = 1 << 16):
+                      tile: int = 32, stride: int = 8, chunk: int = 1 << 16,
+                      live=None):
     """Two-side rotated patches of (B,) edges: (patches (B, 2*P*P) [plus |
     minus], ok (B, 2)). K7 for CUDA tensors, the plain twin (in chunks of
-    `chunk` edges) for CPU tensors."""
+    `chunk` edges) for CPU tensors. `live`, a (B,) bool mask, lets K7
+    skip the dead edges, whose rows are then unspecified (the twin
+    computes every row)."""
     if x.is_cuda:
         return edge_patches_cuda(img, x, y, theta, patch_size, shift_mag,
-                                 tile, stride)
+                                 tile, stride, live)
     if x.device.type != "cpu":
         raise ValueError(f"edge_patches: unsupported device {x.device}")
     return edge_patches_plain(img, x, y, theta, patch_size, shift_mag, tile,
@@ -472,11 +505,22 @@ def _gate_scalars(patch_size):
     return _recip(patch_size * patch_size), NCC_EPS, NCC_EPS * NCC_EPS
 
 
-def _launch(name, fn, dev, *args):
+def _launch(name, fn, dev, n_launches, *args):
     with torch.cuda.device(dev):
         err = fn(*args, CB.stream_ptr(dev))
     CB.check(err, name)
-    CB.LAUNCHES["dense_gates"] += 1
+    CB.LAUNCHES["dense_gates"] += n_launches
+
+
+def _terms(rows, sides, dev):
+    """Scratch for the prep pass's terms of a candidate table: a row's
+    {mean+, ss+, mean-, ss-} a side, then {|b+|^2, |b-|^2} a side, padded
+    to 16 bytes (csrc/dense_gates.cu `terms_stride`)."""
+    if rows >= 2 ** 31:
+        raise ValueError(f"dense_gates: a table of {rows} rows, K6 keeps "
+                         f"candidate indices in 32 bits")
+    return torch.empty((rows, 8 if sides == 1 else 12), dtype=torch.float32,
+                       device=dev)
 
 
 def dense_gates_stereo_cuda(l_desc, r_desc, cand_idx, cmask, l_patches, l_ok,
@@ -485,7 +529,9 @@ def dense_gates_stereo_cuda(l_desc, r_desc, cand_idx, cmask, l_patches, l_ok,
                             fill_ncc: float):
     """K6's stereo entry (csrc/dense_gates.cu): same contract as
     `dense_gates_stereo_plain`, for contiguous CUDA tensors (bf16
-    descriptors, int64 indices, bool masks and flags); one launch."""
+    descriptors, int64 indices, bool masks and flags); two launches (the
+    prep pass over the right table, then the gates), one with no right
+    row."""
     what = "dense_gates_stereo_cuda"
     _k6_checks(what, cmask, patch_size, l_desc, r_desc)
     dev = cmask.device
@@ -504,11 +550,13 @@ def dense_gates_stereo_cuda(l_desc, r_desc, cand_idx, cmask, l_patches, l_ok,
         CB.require(t, name, dtype, shape, dev)
     out = torch.empty((2, N, C), dtype=torch.float32, device=dev)
     if N and C:
+        terms = _terms(Nr, 1, dev)
         _launch("dense_gates (stereo)", CB.lib().dense_gates_stereo_launch,
-                dev, l_desc.data_ptr(), r_desc.data_ptr(),
+                dev, 1 + (Nr > 0), l_desc.data_ptr(), r_desc.data_ptr(),
                 cand_idx.data_ptr(), cmask.data_ptr(), N, C,
                 l_patches.data_ptr(), l_ok.data_ptr(), r_patches.data_ptr(),
-                r_ok.data_ptr(), patch_size, sift_threshold,
+                r_ok.data_ptr(), Nr, terms.data_ptr(), patch_size,
+                sift_threshold,
                 *_gate_scalars(patch_size), fill_dist,
                 fill_ncc, out.data_ptr())
     return out[0], out[1]
@@ -519,8 +567,9 @@ def dense_gates_temporal_cuda(kf_patches_l, kf_ok_l, kf_patches_r, kf_ok_r,
                               cf_desc, cf_idx, cmask, patch_size: int,
                               fill_ncc: float, fill_dist: float):
     """K6's temporal entry (csrc/dense_gates.cu): same contract as
-    `dense_gates_temporal_plain`, for contiguous CUDA tensors; one
-    launch."""
+    `dense_gates_temporal_plain`, for contiguous CUDA tensors; two
+    launches (the prep pass over the CF table, then the gates), one with
+    no CF row."""
     what = "dense_gates_temporal_cuda"
     _k6_checks(what, cmask, patch_size, kf_desc_l, kf_desc_r, cf_desc)
     dev = cmask.device
@@ -542,13 +591,14 @@ def dense_gates_temporal_cuda(kf_patches_l, kf_ok_l, kf_patches_r, kf_ok_r,
         CB.require(t, name, dtype, shape, dev)
     out = torch.empty((4, M, Cq), dtype=torch.float32, device=dev)
     if M and Cq:
+        terms = _terms(Mc, 2, dev)
         _launch("dense_gates (temporal)",
-                CB.lib().dense_gates_temporal_launch, dev,
+                CB.lib().dense_gates_temporal_launch, dev, 1 + (Mc > 0),
                 kf_patches_l.data_ptr(), kf_ok_l.data_ptr(),
                 kf_patches_r.data_ptr(), kf_ok_r.data_ptr(),
                 kf_desc_l.data_ptr(), kf_desc_r.data_ptr(),
                 cf_patches.data_ptr(), cf_ok.data_ptr(), cf_desc.data_ptr(),
-                cf_idx.data_ptr(), cmask.data_ptr(), M, Cq, patch_size,
+                Mc, terms.data_ptr(), cf_idx.data_ptr(), cmask.data_ptr(), M, Cq, patch_size,
                 *_gate_scalars(patch_size), fill_ncc,
                 fill_dist, out.data_ptr())
     return out
@@ -574,10 +624,33 @@ def dense_gates_flat_cuda(l_patches, l_ok, rows, r_patches, r_ok, live,
     out = torch.empty((Fn,), dtype=torch.float32, device=dev)
     if Fn:
         _launch("dense_gates (flat)", CB.lib().dense_gates_flat_launch, dev,
-                l_patches.data_ptr(), l_ok.data_ptr(), rows.data_ptr(),
+                1, l_patches.data_ptr(), l_ok.data_ptr(), rows.data_ptr(),
                 r_patches.data_ptr(), r_ok.data_ptr(), live.data_ptr(), Fn,
                 patch_size, *_gate_scalars(patch_size),
                 fill, out.data_ptr())
+    return out
+
+
+K6_KERNELS = ("prep (float32 table)", "prep (bf16 table)", "stereo",
+              "temporal", "flat")
+
+
+def k6_info():
+    """What the built K6 is on this card, per kernel of `K6_KERNELS`: warps
+    a block, registers a thread, local (spill) bytes a thread, static
+    shared bytes a block, blocks and warps an SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`); and the live slots
+    the gates take a warp step."""
+    buf = (ctypes.c_int * 26)()
+    CB.check(CB.lib().dense_gates_info(ctypes.addressof(buf)),
+             "dense_gates_info")
+    out = {}
+    for k, name in enumerate(K6_KERNELS):
+        v = buf[5 * k:5 * k + 5]
+        out[name] = dict(warps_per_block=v[0], registers=v[1],
+                         local_bytes=v[2], shared_bytes=v[3],
+                         blocks_per_sm=v[4], warps_per_sm=v[0] * v[4])
+    out["slots_a_step"] = buf[25]
     return out
 
 

@@ -228,6 +228,24 @@ def test_k7_work_from_a_hand_made_shape():
     assert C.k7_work(0, 49, 376, 1241) == (0, 376 * 1241 * 4)
 
 
+def test_k7_work_counts_live_edges_only():
+    """With a live mask (stage 11's list), the dead edges are neither
+    sampled nor written: the work of the live edges, plus the mask's one
+    byte an entry; a mask with every entry live costs only those bytes."""
+    live = np.array([1, 1, 0, 0, 0], bool)
+    assert C.k7_work(5, 49, 10, 20, live) == (2 * (98 * 33 + 14),
+                                              800 + 2 * 406 + 5)
+    assert C.k7_work(5, 49, 10, 20, torch.from_numpy(live)) == (6496, 1617)
+    full = C.k7_work(3, 49, 10, 20, np.ones(3, bool))
+    assert full == (9744, 2018 + 3)
+    # stage 11 of frame 2 at 376 x 1241: 37,576 live of 131,072 entries
+    live = np.arange(131_072) < 37_576
+    w = C.k7_work(131_072, 49, 376, 1241, live)
+    assert w == (37_576 * (98 * 33 + 14),
+                 376 * 1241 * 4 + 37_576 * 406 + 131_072)
+    assert C.bound(*w)["bound_by"] == "bytes"
+
+
 @pytest.mark.parametrize("B,flops,nbytes,us", [
     (32_768, 106_430_464, 15_170_272, 4.5284),     # left / right edges
     (131_072, 425_721_856, 55_081_696, 16.4423),   # stage-11 centres

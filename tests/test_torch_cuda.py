@@ -713,6 +713,33 @@ def test_dense_gates_kernel_small_shapes(dev, N, name):
     _gates_same(dev, name, N, seed=N)
 
 
+def test_dense_gates_empty_tables_and_rows(dev):
+    """K6 where a row has live slots nowhere (every mask False) over an
+    empty candidate table: the fills everywhere, and only the gates
+    launched (no prep pass over no row)."""
+    s = C.gate_tensors(GC.stereo_case("interior"), dev)
+    s["cmask"] = torch.zeros_like(s["cmask"])
+    for k in ("r_desc", "r_pat", "r_ok"):
+        s[k] = s[k][:0]
+    a, kw = C.k6_args("stereo", s)
+    before = CB.LAUNCHES["dense_gates"]
+    d, n = PAT.dense_gates_stereo_cuda(*a, **kw)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["dense_gates"] == before + 1
+    assert bool((d == kw["fill_dist"]).all() and (n == kw["fill_ncc"]).all())
+
+
+def test_dense_gates_and_patches_kernels_do_not_spill(dev):
+    """The built K6 kernels: no local (spill) memory; K6 and K7 at least 16
+    warps an SM. (K7's 32 local bytes are sinf's and cosf's argument
+    reduction, as in K2, K3 and K5.)"""
+    info = PAT.k6_info()
+    for name in PAT.K6_KERNELS:
+        assert info[name]["local_bytes"] == 0, (name, info[name])
+        assert info[name]["warps_per_sm"] >= 16, (name, info[name])
+    assert PAT.k7_info()["warps_per_sm"] >= 16
+
+
 def test_dense_gates_kernel_gives_exact_copies_distance_zero(dev):
     """A candidate equal to the row, or with its halves swapped: kernel
     and twin both give a distance of exactly 0 (the same lane order on
@@ -776,6 +803,55 @@ def test_edge_patches_kernel_matches_jax_reference(dev):
     assert all(n == 0 and n_ok == 0 for n, _, n_ok in res.values()), res
 
 
+@pytest.mark.parametrize("name", GC.PATCH_CASES)
+@pytest.mark.parametrize("B,live_kind", [(4096, "prefix"), (4096, "random"),
+                                         (1000, "none"), (1, "prefix")])
+def test_edge_patches_kernel_with_live_mask(dev, name, B, live_kind):
+    """K7 given a `live` mask (stage 11's flat list: a prefix; also a
+    random mask and none live) against the twin run on the card: the live
+    rows' patches bit-equal and ok flags equal."""
+    a, kw = _patch_args(name, B, dev, seed=B)
+    g = np.random.default_rng(B)
+    live = {"prefix": np.arange(B) < (B * 3) // 7 + 1,
+            "random": g.random(B) < 0.3,
+            "none": np.zeros(B, bool)}[live_kind]
+    live = torch.from_numpy(live).to(dev)
+    k = PAT.edge_patches_cuda(*a, **kw, live=live)
+    p = PAT.edge_patches_plain(*a, **kw)
+    torch.cuda.synchronize()
+    _same_f32(k[0][live], p[0][live])
+    assert bool((k[1][live] == p[1][live]).all())
+
+
+def test_edge_patches_kernel_leaves_dead_rows_unwritten(dev, monkeypatch):
+    """K7 writes neither the patch row nor the ok flags of a dead edge: the
+    outputs, pre-filled with a NaN sentinel and True through the wrapper's
+    allocation, keep them on every dead row, whole blocks of dead edges
+    among them."""
+    B = 3000
+    a, kw = _patch_args("borders", B, dev, seed=5)
+    sentinel = 0x7FC0DEAD
+
+    def prefilled(n, patch_size, device):
+        pat = torch.full((n, 2 * patch_size * patch_size), sentinel,
+                         dtype=torch.int32, device=device).view(torch.float32)
+        return pat, torch.ones((n, 2), dtype=torch.bool, device=device)
+
+    monkeypatch.setattr(PAT, "_patch_outputs", prefilled)
+    live = torch.from_numpy(np.random.default_rng(7).random(B) < 0.5)
+    live[1000:2000] = False
+    live = live.to(dev)
+    k = PAT.edge_patches_cuda(*a, **kw, live=live)
+    p = PAT.edge_patches_plain(*a, **kw)
+    torch.cuda.synchronize()
+    dead = ~live
+    assert bool((k[0][dead].view(torch.int32) == sentinel).all())
+    assert bool(k[1][dead].all())
+    _same_f32(k[0][live], p[0][live])
+    assert bool((k[1][live] == p[1][live]).all())
+    assert bool((~p[1][live]).any())    # some live sides are not ok
+
+
 def test_dense_gates_and_patches_dispatch_count_one_launch(dev, monkeypatch):
     s = C.gate_tensors(GC.stereo_case("interior"), dev)
     a, kw = C.k6_args("stereo", s)
@@ -788,7 +864,8 @@ def test_dense_gates_and_patches_dispatch_count_one_launch(dev, monkeypatch):
     PAT.edge_patches(*pa, **pkw)
     PAT.edge_patches_flat(*pa, **pkw)
     torch.cuda.synchronize()
-    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 2
+    # the stereo and temporal entries: the prep pass, then the gates
+    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 4
     assert CB.LAUNCHES["edge_patches"] == before["edge_patches"] + 2
 
     def no_build():
@@ -799,7 +876,7 @@ def test_dense_gates_and_patches_dispatch_count_one_launch(dev, monkeypatch):
                              for x in a), **kw)
     PAT.edge_patches_flat(*(x.cpu() if torch.is_tensor(x) else x
                             for x in pa), **pkw)
-    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 2
+    assert CB.LAUNCHES["dense_gates"] == before["dense_gates"] + 4
     assert CB.LAUNCHES["edge_patches"] == before["edge_patches"] + 2
 
 
@@ -823,8 +900,9 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert n_gpu["cluster_edges"] == 5
     # K5: left edges, right edges and mates in each of the 3 stereo steps
     assert n_gpu["edge_descriptors"] == 9
-    # K6: stages 4-5 and stage 11 of each stereo step, once a temporal step
-    assert n_gpu["dense_gates"] == 3 * 2 + 2
+    # K6: stages 4-5 (the prep pass and the gates) and stage 11 of each
+    # stereo step, the prep pass and the gates of each temporal step
+    assert n_gpu["dense_gates"] == 3 * 3 + 2 * 2
     # K7: left edges, right edges, stage 11 and mates of each stereo step
     assert n_gpu["edge_patches"] == 3 * 4
     for (fc, tc), (fg, tg) in zip(cpu, gpu):

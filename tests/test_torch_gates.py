@@ -17,6 +17,7 @@ NaN positions exactly equal.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 import jax.numpy as jnp
 
 import chip_smoke as C
@@ -150,6 +151,161 @@ def test_lane_sum_is_two_samples_a_lane_then_a_butterfly(n):
     assert torch.equal(P._lane_sum(v), lanes[:, 0])
 
 
+# K6's gates take SLOTS live slots a warp step, 32 / SLOTS lanes a slot:
+# a lane adds its own leaves of a sum (those congruent to it modulo the
+# lanes) in the butterfly's order, then the slot's lanes finish the
+# butterfly (csrc/dense_gates.cu `lane_tree`, `slot_sum`).
+SLOTS = (2, 4, 8, 32)
+
+
+def _node(leaves, h, lanes, t, m):
+    """csrc/dense_gates.cu `lane_tree`: lane h's node t mod m over its T =
+    N / lanes leaves h + lanes t (a recursion, depth first)."""
+    T = leaves.shape[-1] // lanes
+    if m == T:
+        return leaves[..., h + lanes * t]
+    return (_node(leaves, h, lanes, t, 2 * m)
+            + _node(leaves, h, lanes, t + m, 2 * m))
+
+
+def _stack_sum(leaves, h, lanes):
+    """The same in-lane sum as a stream: the lane visits its leaves in
+    bit-reversed order and keeps a stack of partials, adding the top two
+    while they cover equal counts; at most log2(T) + 1 are kept."""
+    T = leaves.shape[-1] // lanes
+    bits = T.bit_length() - 1
+    stack, deepest = [], 0
+    for i in range(T):
+        t = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+        stack.append((leaves[..., h + lanes * t], 1))
+        while len(stack) > 1 and stack[-1][1] == stack[-2][1]:
+            (a, n), (b, _) = stack[-2], stack.pop()
+            stack[-1] = (a + b, 2 * n)
+        deepest = max(deepest, len(stack) + 1)
+    assert len(stack) == 1 and deepest <= bits + 2
+    return stack[0][0]
+
+
+def _slot_sums(leaves, lanes, stack=False):
+    """Every lane's result of a sum over (..., N) leaves with `lanes`
+    lanes a slot: the in-lane part, then the butterfly over the lanes."""
+    v = [(_stack_sum(leaves, h, lanes) if stack
+          else _node(leaves, h, lanes, 0, 1)) for h in range(lanes)]
+    o = lanes // 2
+    while o:
+        v = [v[h] + v[h ^ o] for h in range(lanes)]
+        o //= 2
+    return v
+
+
+def _side_leaves(v):
+    """A side sum's 32 leaves: lane l's two samples l and l + 32, 0 past
+    the side."""
+    s = F.pad(v, (0, P.MAX_SIDE - v.shape[-1]))
+    return s[..., :32] + s[..., 32:]
+
+
+def _chunk_leaves(a, b):
+    """A half dot's 16 leaves: chunk q's 8 products in order."""
+    p = a * b
+    p = p.reshape(*p.shape[:-1], 16, 8)
+    s = p[..., 0]
+    for t in range(1, 8):
+        s = s + p[..., t]
+    return s
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("n", [49, 25, 9, 64, 1])
+def test_in_lane_levels_equal_the_lane_sum(slots, n):
+    """Every lane of a slot, at every slot count the gates were built
+    with, ends with `_lane_sum`'s bits, by the recursion and by the
+    bit-reversed stack (one lane a slot: no butterfly left)."""
+    v = torch.from_numpy(np.random.default_rng(n).normal(0, 100, (5, n))
+                         .astype(np.float32))
+    ref = P._lane_sum(v)
+    for stack in (False, True):
+        for x in _slot_sums(_side_leaves(v), 32 // slots, stack):
+            assert torch.equal(x, ref)
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+def test_in_lane_levels_equal_the_half_dot(slots):
+    g = np.random.default_rng(slots)
+    a, b = (torch.from_numpy(GC.bf16(g.random((7, 128)) * 100))
+            for _ in range(2))
+    ref = P._half_dot(a, b)
+    lanes = min(32 // slots, 16)        # a descriptor half has 16 chunks
+    for stack in (False, True):
+        for x in _slot_sums(_chunk_leaves(a, b), lanes, stack):
+            assert torch.equal(x, ref)
+
+
+def _k6_pairs(a, a_ok, b, b_ok, ad, bd, patch_size, slots):
+    """K6's pair arithmetic modelled on the CPU at `slots` slots a step:
+    the candidate's terms (its sides' means and sums of squares, its
+    halves' |b|^2) formed once a row as the prep pass forms them, a
+    candidate sample centred by one subtraction of the stored mean, the 4
+    cross sums of a pairing or of a descriptor pair summed leaf by leaf in
+    the slot's order. Returns (NCC gate, distance)."""
+    pp = patch_size * patch_size
+    inv = P._recip(pp)
+    lanes = 32 // slots
+
+    def terms(x):          # the prep pass: a side's mean and centring
+        mean = P._lane_sum(x) * inv
+        c = x - mean[..., None]
+        return mean, P._lane_sum(c * c)
+
+    ca = [P._centred(a[..., k * pp:(k + 1) * pp], inv) for k in (0, 1)]
+    tb = [terms(b[..., k * pp:(k + 1) * pp]) for k in (0, 1)]
+    cb = [b[..., k * pp:(k + 1) * pp] - tb[k][0][..., None] for k in (0, 1)]
+    ncc = []
+    for i, j in ((0, 0), (1, 1), (0, 1), (1, 0)):
+        cross = _slot_sums(_side_leaves(ca[i][0] * cb[j]), lanes)[0]
+        ssa, ssb = ca[i][1], tb[j][1]
+        score = cross / torch.sqrt(torch.clamp(ssa * ssb,
+                                               min=P.NCC_EPS * P.NCC_EPS))
+        bad = ((ssa < P.NCC_EPS) | (ssb < P.NCC_EPS)
+               | ~(a_ok[..., i] & b_ok[..., j]))
+        ncc.append(torch.where(bad, torch.full_like(score, -1.0), score))
+    gate = torch.maximum(torch.maximum(ncc[0], ncc[1]),
+                         torch.maximum(ncc[2], ncc[3]))
+    ad, bd = ad.to(torch.float32), bd.to(torch.float32)
+    ah, bh = (ad[..., :128], ad[..., 128:]), (bd[..., :128], bd[..., 128:])
+    dl = min(lanes, 16)
+    a2 = [P._half_dot(h, h) for h in ah]
+    b2 = [P._half_dot(h, h) for h in bh]        # the prep pass's
+    d2 = [[(a2[i] + b2[j]) - 2.0 * _slot_sums(_chunk_leaves(ah[i], bh[j]),
+                                              dl)[0]
+           for j in (0, 1)] for i in (0, 1)]
+    d = torch.minimum(torch.minimum(d2[0][0], d2[0][1]),
+                      torch.minimum(d2[1][0], d2[1][1]))
+    return gate, torch.sqrt(torch.clamp(d, min=0.0))
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("name", GC.GATE_CASES)
+def test_k6_pair_model_equals_the_twins(name, slots):
+    """K6's pair arithmetic at each slot count (`_k6_pairs`: the prep
+    pass's stored terms, the in-lane levels) bit-equal to the twins'
+    `ncc4_lanes` and `desc_distance_lanes` on every slot of the case, the
+    CF patches of the temporal case rounded to bf16 as well."""
+    s = GC.stereo_case(name)
+    t = C.gate_tensors(s, CPU)
+    j = t["cand"]
+    for b in (t["r_pat"], t["r_pat"].to(torch.bfloat16).to(torch.float32)):
+        a_pat, a_ok = t["l_pat"][:, None], t["l_ok"][:, None]
+        gate, dist = _k6_pairs(a_pat, a_ok, b[j], t["r_ok"][j],
+                               t["l_desc"][:, None], t["r_desc"][j], GC.P,
+                               slots)
+        _equal(gate, P.ncc4_lanes(a_pat, a_ok, b[j], t["r_ok"][j], GC.P),
+               "NCC gate")
+        rows = t["l_desc"][:, None].expand(-1, j.shape[1], -1)
+        _equal(dist, P.desc_distance_lanes(rows, t["r_desc"][j]),
+               "distance")
+
+
 def test_half_dot_is_eight_bins_a_lane_then_a_butterfly():
     g = np.random.default_rng(3)
     a, b = (torch.from_numpy(GC.bf16(g.random((7, 128)) * 100))
@@ -256,7 +412,8 @@ SMALL = dict(max_edges=1024, max_candidates=8, gather_slots=64,
 
 def _nan_on_dead(monkeypatch):
     """The K6 wrappers, writing NaN on every slot their gates did not
-    compute instead of the fill."""
+    compute instead of the fill, and K7's given a `live` mask (stage 11),
+    NaN patches and flipped ok flags on every dead entry."""
     stereo, temporal, flat = (P.dense_gates_stereo, P.dense_gates_temporal,
                               P.dense_gates_flat)
 
@@ -272,9 +429,20 @@ def _nan_on_dead(monkeypatch):
     def flat_nan(*a, **kw):
         return torch.where(a[5], flat(*a, **kw), float("nan"))
 
+    patches = P.edge_patches_flat
+
+    def patches_nan(*a, live=None, **kw):
+        # stage 11's call: K7 leaves the dead entries' rows unwritten
+        pat, ok = patches(*a, **kw)
+        if live is None:
+            return pat, ok
+        return (torch.where(live[:, None], pat, float("nan")),
+                torch.where(live[:, None], ok, ~ok))
+
     monkeypatch.setattr(P, "dense_gates_stereo", stereo_nan)
     monkeypatch.setattr(P, "dense_gates_temporal", temporal_nan)
     monkeypatch.setattr(P, "dense_gates_flat", flat_nan)
+    monkeypatch.setattr(P, "edge_patches_flat", patches_nan)
 
 
 def _run(seq, supervised, n_frames):
@@ -333,7 +501,8 @@ def test_no_reader_takes_a_dead_slot(monkeypatch, supervised):
     compute gives the same mates, stage rows, distributions (on their
     masks), quads and pose as with the fills the cascades name: every
     reader of the scores (`_bnb_keep`, the stage-9 scatter-back, stage
-    12's argmax, the evaluation writers' masks) reads through the mask."""
+    12's argmax, the evaluation writers' masks) reads through the mask,
+    and stage 11's NCC reads no patch row K7 may leave unwritten."""
     seq = S.make_sequence(2, 120, 160)
     ref = _run(seq, supervised, 2)
     _nan_on_dead(monkeypatch)

@@ -67,6 +67,15 @@ Phases (each passes or exits non-zero):
      local bytes and warps an SM; K7 against the JAX package's
      `edge_patches_tiled` on every patch case of tests/gate_cases.py (the
      same file);
+ 6g. the patch sizes past the default: 3 frames at P = 5, 9 and 11, each
+     with the largest shift the reference's coverage guard admits (5, 4
+     and 2.9 px); on frame 2's operands at each size K2 (two phases), K3
+     (both sides, two launches), K6 (three entries) and K7 (four calls)
+     bit for bit against their twins on the card, each timed alone (a
+     CUDA graph) beside its bound; the ptxas registers and spills of the
+     instances each size runs; the P = 9 frames held to the production
+     guards (a successful, finite pose with >= 500 quads on frames 1-2)
+     and to the default frame's launches of K2, K3, K6 and K7;
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -119,6 +128,7 @@ import functools
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -1194,23 +1204,25 @@ def gate_tensors(case, dev):
     return out
 
 
-def k6_args(kind, t):
+def k6_args(kind, t, patch_size=None):
     """(args, kwargs) of K6's `kind` entry ("stereo", "temporal", "flat")
-    on a gate case's tensors, with the fills the cascades use."""
+    on a gate case's tensors (made at `patch_size`, the cases' P = 7 if
+    None), with the fills the cascades use."""
     from tests import gate_cases as GC
 
+    P = GC.P if patch_size is None else patch_size
     if kind == "stereo":
         return ((t["l_desc"], t["r_desc"], t["cand"], t["cmask"], t["l_pat"],
-                 t["l_ok"], t["r_pat"], t["r_ok"], GC.SIFT, GC.P),
+                 t["l_ok"], t["r_pat"], t["r_ok"], GC.SIFT, P),
                 dict(fill_dist=2 * GC.SIFT, fill_ncc=0.0))
     if kind == "temporal":
         return ((t["kf_pat_l"], t["kf_ok_l"], t["kf_pat_r"], t["kf_ok_r"],
                  t["kf_desc_l"], t["kf_desc_r"], t["cf_pat"], t["cf_ok"],
-                 t["cf_desc"], t["cf_idx"], t["cmask"], GC.P),
+                 t["cf_desc"], t["cf_idx"], t["cmask"], P),
                 dict(fill_ncc=-1.0, fill_dist=900.0))
     assert kind == "flat", kind
     return ((t["l_pat"], t["l_ok"], t["rows"], t["r_pat"], t["r_ok"],
-             t["live"], GC.P), dict(fill=0.6 + 1e-6))
+             t["live"], P), dict(fill=0.6 + 1e-6))
 
 
 def k6_against_jax(dev):
@@ -1283,6 +1295,50 @@ def f32_differ(a, b):
                 & ~(a.isnan() & b.isnan())).sum())
 
 
+K6_ENTRIES = ("stereo", "flat", "temporal")
+
+
+def k6_call(kind, a, kw, what="K6"):
+    """K6's `kind` entry ("stereo", "flat", "temporal") on the operands
+    (a, kw) against its twin run on the card: fails unless every slot is
+    bit-equal and the slots not computed hold their fill. Returns (kernel
+    output, twin output, its (flops, bytes) (`k6_work`), the call's
+    counts)."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    kern = getattr(PAT, f"dense_gates_{kind}_cuda")
+    twin = getattr(PAT, f"dense_gates_{kind}_plain")
+    k, p = kern(*a, **kw), twin(*a, **kw)
+    torch.cuda.synchronize()
+    k, p = (torch.stack(x) if isinstance(x, tuple) else x for x in (k, p))
+    n_bad = f32_differ(k, p)
+    check(n_bad == 0, f"{what} {kind} call: {n_bad} of {k.numel()} values "
+                      f"not bit-equal to the twin")
+    if kind == "stereo":
+        live, pp = a[3], a[9] * a[9]
+        surv = live & (k[0] < a[8])
+        fills = ((k[0] == kw["fill_dist"]) | live).all() & (
+            (k[1] == kw["fill_ncc"]) | surv).all()
+        work = k6_work("stereo", live, pp, a[2], surv)
+        detail = dict(rows=live.shape[0], slots=live.shape[1],
+                      live=int(live.sum()), ncc_pairs=int(surv.sum()))
+    elif kind == "flat":
+        live, pp = a[5], a[6] * a[6]
+        fills = ((k == kw["fill"]) | live).all()
+        work = k6_work("flat", live, pp, a[2])
+        detail = dict(pairs=live.shape[0], live=int(live.sum()))
+    else:
+        live, pp = a[10], a[11] * a[11]
+        fills = ((k[:2] == kw["fill_ncc"]) | live).all() & (
+            (k[2:] == kw["fill_dist"]) | live).all()
+        work = k6_work("temporal", live, pp, a[9])
+        detail = dict(rows=live.shape[0], slots=live.shape[1],
+                      live=int(live.sum()))
+    check(bool(fills), f"{what} {kind} call: a slot not computed lost its "
+                       f"fill")
+    return k, p, work, detail
+
+
 def phase_k6(gate_ops, card):
     """Phase 6e: K6 against its twins run on the card, bit for bit on every
     slot, on the operands of frame 2's three calls (`gate_ops`: kind ->
@@ -1293,46 +1349,17 @@ def phase_k6(gate_ops, card):
     its times and bound those of a frame's three calls."""
     from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 
-    entries = {"stereo": (PAT.dense_gates_stereo_cuda,
-                          PAT.dense_gates_stereo_plain),
-               "flat": (PAT.dense_gates_flat_cuda, PAT.dense_gates_flat_plain),
-               "temporal": (PAT.dense_gates_temporal_cuda,
-                            PAT.dense_gates_temporal_plain)}
+    entries = {kind: (getattr(PAT, f"dense_gates_{kind}_cuda"),
+                      getattr(PAT, f"dense_gates_{kind}_plain"))
+               for kind in K6_ENTRIES}
     calls, err = {}, 0.0
     for kind, (kern, twin) in entries.items():
         check(kind in gate_ops, f"K6: no {kind} call recorded in frame 2")
         a, kw = gate_ops[kind]
-        k, p = kern(*a, **kw), twin(*a, **kw)
-        torch.cuda.synchronize()
-        k, p = (torch.stack(x) if isinstance(x, tuple) else x for x in (k, p))
-        n_bad = f32_differ(k, p)
-        check(n_bad == 0, f"K6 {kind} call: {n_bad} of {k.numel()} values "
-                          f"not bit-equal to the twin")
+        k, p, work, detail = k6_call(kind, a, kw)
         fin = k.isfinite() & p.isfinite()
         if bool(fin.any()):
             err = max(err, float((k - p).abs()[fin].max()))
-        if kind == "stereo":
-            live, pp = a[3], a[9] * a[9]
-            surv = live & (k[0] < a[8])
-            fills = ((k[0] == kw["fill_dist"]) | live).all() & (
-                (k[1] == kw["fill_ncc"]) | surv).all()
-            work = k6_work("stereo", live, pp, a[2], surv)
-            detail = dict(rows=live.shape[0], slots=live.shape[1],
-                          live=int(live.sum()), ncc_pairs=int(surv.sum()))
-        elif kind == "flat":
-            live, pp = a[5], a[6] * a[6]
-            fills = ((k == kw["fill"]) | live).all()
-            work = k6_work("flat", live, pp, a[2])
-            detail = dict(pairs=live.shape[0], live=int(live.sum()))
-        else:
-            live, pp = a[10], a[11] * a[11]
-            fills = ((k[:2] == kw["fill_ncc"]) | live).all() & (
-                (k[2:] == kw["fill_dist"]) | live).all()
-            work = k6_work("temporal", live, pp, a[9])
-            detail = dict(rows=live.shape[0], slots=live.shape[1],
-                          live=int(live.sum()))
-        check(bool(fills), f"K6 {kind} call: a slot not computed lost its "
-                           f"fill")
         row = launch_bound(cuda_ms(lambda: kern(*a, **kw), 20),
                            graph_ms(lambda: kern(*a, **kw), 20), *work)
         row.update(plain_ms=cuda_ms(lambda: twin(*a, **kw), 2), **detail)
@@ -1382,6 +1409,38 @@ def phase_k6(gate_ops, card):
         **frame)
 
 
+K7_CALLS = ("left edges", "right edges", "stage-11 centres", "mates")
+
+
+def k7_call(name, a, kw, what="K7"):
+    """K7 on one recorded `edge_patches_flat` call (a, kw) of a stereo
+    step (`name` of `K7_CALLS`) against its twin run on the card: fails
+    unless the patches and ok flags of the live edges are bit-equal
+    (stage 11's call alone has a live mask). Returns (kernel (patches,
+    ok), twin (patches, ok), edges, live edges, (flops, bytes)
+    (`k7_work`))."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    B = a[1].shape[0]
+    H, W = a[0].shape
+    pp = a[4] * a[4]
+    live = kw.get("live")
+    twin_kw = {k_: v for k_, v in kw.items() if k_ != "live"}
+    check((live is not None) == (name == "stage-11 centres"),
+          f"{what} {name} call: a live mask "
+          f"{'missing' if live is None else 'given'}")
+    k = PAT.edge_patches_cuda(*a, **kw)
+    p = PAT.edge_patches_plain(*a, **twin_kw)
+    torch.cuda.synchronize()
+    if live is not None:         # a dead entry's row is unspecified
+        k, p = (k[0][live], k[1][live]), (p[0][live], p[1][live])
+    n_bad = f32_differ(k[0], p[0]) + int((k[1] != p[1]).sum())
+    n_live = B if live is None else int(live.sum())
+    check(n_bad == 0, f"{what} {name} call ({n_live} of {B} edges): "
+                      f"{n_bad} values or flags differ from the twin")
+    return k, p, B, n_live, k7_work(B, pp, H, W, live)
+
+
 def phase_k7(patch_ops, card):
     """Phase 6f: K7 against its twin run on the card, bit for bit, on the
     operands of the four `edge_patches_flat` calls of frame 2's stereo
@@ -1394,31 +1453,16 @@ def phase_k7(patch_ops, card):
     check(len(patch_ops) == 4, f"K7: {len(patch_ops)} calls of edge_patches "
                                f"recorded in frame 2's stereo step, not 4")
     calls, err = {}, 0.0
-    for name, (a, kw) in zip(("left edges", "right edges", "stage-11 centres",
-                              "mates"), patch_ops):
-        B = a[1].shape[0]
-        H, W = a[0].shape
-        pp = a[4] * a[4]
-        live = kw.get("live")
+    for name, (a, kw) in zip(K7_CALLS, patch_ops):
+        k, p, B, n_live, work = k7_call(name, a, kw)
         twin_kw = {k_: v for k_, v in kw.items() if k_ != "live"}
-        check((live is not None) == (name == "stage-11 centres"),
-              f"K7 {name} call: a live mask {'missing' if live is None else 'given'}")
-        k = PAT.edge_patches_cuda(*a, **kw)
-        p = PAT.edge_patches_plain(*a, **twin_kw)
-        torch.cuda.synchronize()
-        if live is not None:         # a dead entry's row is unspecified
-            k, p = (k[0][live], k[1][live]), (p[0][live], p[1][live])
-        n_bad = f32_differ(k[0], p[0]) + int((k[1] != p[1]).sum())
-        n_live = B if live is None else int(live.sum())
-        check(n_bad == 0, f"K7 {name} call ({n_live} of {B} edges): {n_bad} "
-                          f"values or flags differ from the twin")
         fin = k[0].isfinite()
         if bool(fin.any()):
             err = max(err, float((k[0] - p[0]).abs()[fin].max()))
         row = launch_bound(
             cuda_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
             graph_ms(lambda: PAT.edge_patches_cuda(*a, **kw), 20),
-            *k7_work(B, pp, H, W, live))
+            *work)
         row.update(plain_ms=cuda_ms(
             lambda: PAT.edge_patches_plain(*a, **twin_kw), 2),
             edges=B, live=n_live, ok_sides=int(k[1].sum()))
@@ -1463,6 +1507,314 @@ def phase_k7(patch_ops, card):
         plain_ms=sum(r["plain_ms"] for r in calls.values()), calls=calls,
         info=info, against_jax_max_err=max(v[1] for v in jax_cmp.values()),
         **step)
+
+
+# Phase 6g: the patch sizes past the default. Each runs with the largest
+# shift the reference's coverage guard admits there (P = 9: <= 4.34 px,
+# P = 11: <= 2.93 px; `patches.check_coverage`), P = 5 at the default.
+WIDE_PATCHES = ((5, 5.0), (9, 4.0), (11, 2.9))
+GUARDED_PATCH = 9       # the size whose 3 frames are held to the guards
+PATCH_KERNELS = ("refine_along_epipolar", "refine_2dof", "dense_gates",
+                 "edge_patches")
+
+
+class Recording:
+    """Within `with Recording() as ops:`, the wrappers a frame calls keep
+    their operands: ops["k2"] the last `refine_along_epipolar_batch`
+    call's (args, kwargs), ops["k3"] the last `refine_2dof_pair_batch`'s,
+    ops[kind] the last call of each K6 entry, ops["k7"] the
+    `edge_patches_flat` calls since it was last cleared."""
+
+    def __enter__(self):
+        from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+        from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+        self.ops, self.saved = {"k7": []}, []
+        targets = [(GN, "refine_along_epipolar_batch", "k2"),
+                   (GN, "refine_2dof_pair_batch", "k3"),
+                   (PAT, "edge_patches_flat", "k7")]
+        targets += [(PAT, f"dense_gates_{kind}", kind) for kind in K6_ENTRIES]
+        for mod, name, key in targets:
+            fn = getattr(mod, name)
+
+            def run(*a, _fn=fn, _key=key, **kw):
+                if _key == "k7":
+                    self.ops["k7"].append((a, kw))
+                else:
+                    self.ops[_key] = (a, kw)
+                return _fn(*a, **kw)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, run)
+        return self.ops
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+
+
+def ptxas_entries():
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from the ptxas log of the built library."""
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+
+    out, name, spill = {}, None, (0, 0)
+    for ln in CB.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def patch_instances(P):
+    """The ptxas entries of the kernel instances patch size P runs: K2's
+    slots a thread, K3's P, K6's samples a lane, K7's one kernel."""
+    ns = max(4, (2 * P * P + 31) // 32)
+    lanes = 2 if P * P <= 64 else 4
+    pats = {"K2": rf"epipolar_gn_kernelILi{ns}E",
+            "K3": rf"gn_2dof_(direct|queue)ILi{P}E",
+            "K6": rf"dense_gates_\w+?_kernelI(\w*?)Li{lanes}E",
+            "K7": r"edge_patches_kernel"}
+    found = {}
+    for name, v in ptxas_entries().items():
+        for k, pat in pats.items():
+            if re.search(pat, name):
+                short = re.search(r"epipolar_gn_kernel|gn_2dof_direct|"
+                                  r"gn_2dof_queue|dense_gates_[a-z]+_kernel|"
+                                  r"edge_patches_kernel", name).group(0)
+                if "prep" in short:
+                    short += " (bf16)" if "bfloat16" in name else " (float)"
+                found[f"{k} {short}"] = v
+    return found
+
+
+def wide_gn_k2(ops, P, H, W):
+    """K2 at patch size P on frame 2's stage-9 operands: the two phases
+    bit for bit against the twin on the card, each launch timed alone (a
+    CUDA graph) beside its bound from the iterations it ran."""
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    a, kw = ops["k2"]
+    act = kw["active"]
+    B = act.shape[0]
+    gn_kw = dict(patch_size=P, max_iter=kw["max_iter"], tol=kw["tol"],
+                 huber_delta=kw["huber_delta"], tile=kw["tile"])
+    phase_kw = dict(phase1_iters=kw["phase1_iters"],
+                    phase2_budget=kw["phase2_budget"],
+                    max_iter=kw["max_iter"], chunk=kw["chunk"])
+    maps4 = GN.interleave_maps(*a[1:4])
+    lanes = tuple(t.contiguous() for t in a[4:])
+    alpha0 = torch.zeros(B, device=act.device)
+    calls = []
+    rk = GN._two_phase(recorder(GN.refine_along_epipolar_cuda, a[:4], gn_kw,
+                                calls, maps4=maps4), B, lanes, act, alpha0,
+                       **phase_kw)
+    rp = GN._two_phase(recorder(GN.refine_along_epipolar_plain, a[:4],
+                                gn_kw, []), B, lanes, act, alpha0, **phase_kw)
+    torch.cuda.synchronize()
+    same_lanes(rk, rp, act, f"K2 at P = {P}, two phases")
+    ms, flops, nbytes = 0.0, 0, 0
+    for args, d0, it0, it_stop, fact in calls:
+        def run(args=args, d0=d0, it0=it0, it_stop=it_stop, fact=fact):
+            return GN.refine_along_epipolar_cuda(*a[:4], *args, d0, fact,
+                                                 it0, it_stop, maps4=maps4,
+                                                 **gn_kw)
+        res, _ = run()
+        it = ((res.iters.long() - it0).clamp(min=0) * fact).cpu().numpy()
+        f, b = k2_work(it, fact.cpu().numpy(), P, H, W)
+        ms, flops, nbytes = ms + graph_ms(run, 20), flops + f, nbytes + b
+    return with_bound(ms, flops, nbytes, fma_free=True), dict(
+        lanes=B, active=int(act.sum()))
+
+
+def wide_gn_k3(ops, P, H, W):
+    """K3 at patch size P on frame 2's `refine_2dof_pair_batch` operands:
+    the main path's two launches bit for bit against the twin's in-place
+    form on the card, both sides; the two launches (and the cumsum between
+    them) timed alone through a CUDA graph beside their bound."""
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+
+    a3, kw3 = ops["k3"]
+    kfs, maps4, act3 = [a3[0], a3[1]], a3[2], a3[5]
+    kpack, cpack = a3[3].contiguous(), a3[4].contiguous()
+    B3 = act3.shape[0]
+    g3 = dict(patch_size=P, max_iter=kw3["max_iter"], tol=kw3["tol"],
+              huber_delta=kw3["huber_delta"], tile=kw3["tile"])
+    ph3 = dict(phase1_iters=kw3["phase1_iters"],
+               phase2_budget=kw3["phase2_budget"], chunk=kw3["chunk"])
+    two = GN.refine_2dof_pair_batch(*a3, **kw3)
+    iters = []
+    for s in range(2):
+        imgs = (kfs[s], *(maps4[s, ..., k].contiguous() for k in range(3)))
+        lanes = tuple(t[:, 3 * s + k].contiguous() for t in (kpack, cpack)
+                      for k in range(3))
+        d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
+        plain, _ = GN._two_phase_in_place(
+            lambda x, d, it0, it_stop, ac, imgs=imgs: GN.refine_2dof_plain(
+                *imgs, *x, d, ac, it0, it_stop, **g3),
+            B3, lanes, act3, d0, max_iter=kw3["max_iter"], **ph3)
+        torch.cuda.synchronize()
+        same_lanes(two[s], plain, act3, f"K3 at P = {P}, side {s}, two "
+                                        f"launches vs the twin")
+        iters.append((two[s].iters.long() * act3).cpu().numpy())
+    ms = graph_ms(lambda: GN.refine_2dof_sides_cuda(
+        kfs, maps4, kpack, cpack, act3, **g3, **ph3), 20)
+    actn = act3.cpu().numpy()
+    w = [k3_work(it, actn, P, H, W) for it in iters]
+    return with_bound(ms, sum(x[0] for x in w), sum(x[1] for x in w),
+                      fma_free=True), dict(lanes=B3, active=int(act3.sum()))
+
+
+def wide_gates_k6(ops, P):
+    """K6's three entries at patch size P on frame 2's operands, each bit
+    for bit against its twin on the card (`k6_call`) and timed alone (a
+    CUDA graph, the prep pass included) beside its bound."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    rows = {}
+    for kind in K6_ENTRIES:
+        a, kw = ops[kind]
+        at = a[{"stereo": 9, "flat": 6, "temporal": 11}[kind]]
+        check(at == P, f"K6 {kind} call at patch size {at}, not {P}")
+        _, _, work, detail = k6_call(kind, a, kw, f"K6 at P = {P}")
+        kern = getattr(PAT, f"dense_gates_{kind}_cuda")
+        rows[kind] = dict(with_bound(graph_ms(lambda: kern(*a, **kw), 20),
+                                     *work), **detail)
+    return rows
+
+
+def wide_patches_k7(ops, P):
+    """K7 on frame 2's four calls at patch size P, each bit for bit
+    against its twin on the card (`k7_call`) and timed alone (a CUDA
+    graph) beside its bound."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    check(len(ops["k7"]) == 4, f"K7 at P = {P}: {len(ops['k7'])} calls in "
+                               f"frame 2's stereo step, not 4")
+    rows = {}
+    for name, (a, kw) in zip(K7_CALLS, ops["k7"]):
+        check(a[4] == P, f"K7 {name} call at patch size {a[4]}, not {P}")
+        _, _, B, n_live, work = k7_call(name, a, kw, f"K7 at P = {P}")
+        rows[name] = dict(with_bound(graph_ms(
+            lambda: PAT.edge_patches_cuda(*a, **kw), 20), *work),
+            edges=B, live=n_live)
+    return rows
+
+
+def phase_patch_sizes(seq, frames, card, main_launches, dev):
+    """Phase 6g: the production frame at the patch sizes of
+    `WIDE_PATCHES`. For each, 3 frames of 376x1241 through VOPipeline
+    (every_frame) on the card, recording frame 2's operands of K2, K3, K6
+    (three entries) and K7 (four calls); each kernel held bit-equal to its
+    twin on the card on them and timed alone through a CUDA graph beside
+    its bound, and the ptxas registers and spills of the instances the
+    size runs printed. At `GUARDED_PATCH` the frames are held to the
+    production guards (a successful, finite pose on frames 1-2 with >= 500
+    quads) and the launches of K2, K3, K6 and K7 to those of the default
+    frame's run (`main_launches`). Returns {P: {kernel: row}} for the
+    kernels' JSON entries."""
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+    from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
+    from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+
+    H, W = frames[0][0].shape
+    by_p = {}
+    for P, shift in WIDE_PATCHES:
+        cfg = VOConfig(patch_size=P, orthogonal_shift_mag=shift)
+        pipe = PL.VOPipeline(seq.rig, cfg, device=dev,
+                             keyframe_policy="every_frame")
+        torch.cuda.synchronize()
+        CB.reset_launch_counts()
+        line = []
+        with Recording() as ops:
+            for k, (l, r) in enumerate(frames):
+                ops["k7"].clear()
+                fr, tr = pipe.run_frame(l, r)
+                torch.cuda.synchronize()
+                n_mates = int(fr.mates.count)
+                check(n_mates > 0, f"P = {P}, frame {k}: no mates")
+                if k == 0:
+                    line.append(f"mates {n_mates}")
+                    continue
+                ang, terr = rel_pose_err(tr, seq.frames[k - 1],
+                                         seq.frames[k])
+                n_q = int(tr.n_quads)
+                line.append(f"mates {n_mates}, quads {n_q}, pose err "
+                            f"{ang:.4f} deg / {terr * 1e3:.2f} mm")
+                if P == GUARDED_PATCH:
+                    check(bool(tr.success), f"P = {P}, frame {k}: pose not "
+                                            f"successful")
+                    check(bool(torch.isfinite(tr.R).all()
+                               and torch.isfinite(tr.t).all()),
+                          f"P = {P}, frame {k}: non-finite pose")
+                    check(n_q >= 500, f"P = {P}, frame {k}: quads {n_q} < "
+                                      f"500")
+        launches = {n: CB.LAUNCHES[n] for n in PATCH_KERNELS}
+        if P == GUARDED_PATCH:
+            main = {n: main_launches[n] for n in PATCH_KERNELS}
+            check(launches == main, f"P = {P}: launches {launches}, the "
+                                    f"default frame's run {main}")
+        print(f"P = {P}, shift {shift} px, 3 frames of {H}x{W}: "
+              + "; ".join(f"frame {k}: {x}" for k, x in enumerate(line))
+              + f"; launches of K2 / K3 / K6 / K7 "
+              f"{' / '.join(str(v) for v in launches.values())}"
+              + (" (the default frame's)" if P == GUARDED_PATCH else ""))
+        rows = {"refine_along_epipolar": wide_gn_k2(ops, P, H, W),
+                "refine_2dof": wide_gn_k3(ops, P, H, W)}
+        rows["dense_gates"] = wide_gates_k6(ops, P)
+        rows["edge_patches"] = wide_patches_k7(ops, P)
+        k2, k2n = rows["refine_along_epipolar"]
+        k3, k3n = rows["refine_2dof"]
+        print(f"P = {P} K2 frame 2 ({k2n['lanes']} lanes, {k2n['active']} "
+              f"active; two phases) bit-equal to its twin; "
+              f"{k2['ms']:.4f} ms launched alone, bound "
+              f"{k2['bound_ms'] * 1e3:.1f} us ({k2['bound_by']}), "
+              f"{k2['pct_of_bound']:.1f}% of it, "
+              f"{k2['pct_of_bound_no_fma']:.1f}% of the FMA-free bound "
+              f"[{card}]")
+        print(f"P = {P} K3 frame 2 ({k3n['lanes']} lanes a side, "
+              f"{k3n['active']} active; both sides, two launches) bit-equal "
+              f"to its twin; {k3['ms']:.4f} ms launched alone, bound "
+              f"{k3['bound_ms'] * 1e3:.1f} us ({k3['bound_by']}), "
+              f"{k3['pct_of_bound']:.1f}% of it, "
+              f"{k3['pct_of_bound_no_fma']:.1f}% of the FMA-free bound "
+              f"[{card}]")
+        for kname, label in (("dense_gates", "K6"), ("edge_patches", "K7")):
+            for call, row in rows[kname].items():
+                print(f"P = {P} {label} frame 2 {call} call ({row.get('live')}"
+                      f" live) bit-equal to its twin; {row['ms']:.4f} ms "
+                      f"launched alone, bound {row['bound_ms'] * 1e3:.1f} us "
+                      f"({row['bound_by']}), {row['pct_of_bound']:.1f}% of "
+                      f"it [{card}]")
+        for name, (regs, st, ld) in sorted(patch_instances(P).items()):
+            print(f"P = {P} ptxas {name}: {regs} registers, {st} / {ld} "
+                  f"bytes spill stores / loads")
+        info3 = GN.k3_info()["by_patch_size"][P]
+        print(f"P = {P} K3 direct / queue: {info3['direct_registers']} / "
+              f"{info3['queue_registers']} registers, "
+              f"{info3['direct_local_bytes']} / {info3['queue_local_bytes']}"
+              f" local bytes, {info3['direct_warps_per_sm']} / "
+              f"{info3['queue_warps_per_sm']} warps an SM")
+        if P * P > 64:
+            info6 = PAT.k6_info()["wide"]
+            for name in PAT.K6_KERNELS:
+                check(info6[name]["local_bytes"] == 0,
+                      f"K6 {name} kernel at 4 samples a lane spills")
+        by_p[P] = {
+            "refine_along_epipolar": dict(k2, **k2n),
+            "refine_2dof": dict(k3, **k3n),
+            "dense_gates": rows["dense_gates"],
+            "edge_patches": rows["edge_patches"],
+            "launches": launches}
+    return by_p
 
 
 def phase_sequence(seq, images, card, work_dir):
@@ -2258,6 +2610,11 @@ def main():
     kernels.append(phase_k6(gate_ops, card))
     # ---- 6f. K7 vs plain, bit for bit, on frame 2's four calls ----
     kernels.append(phase_k7(patch_ops, card))
+    # ---- 6g. K2, K3, K6, K7 at P = 5, 9, 11, bit for bit, timed ----
+    wide = phase_patch_sizes(seq, frames, card, launches, dev)
+    for kd in kernels:
+        if kd["name"] in PATCH_KERNELS:
+            kd["by_patch_size"] = {P: w[kd["name"]] for P, w in wide.items()}
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2362,7 +2719,7 @@ def main():
             "step_launches_ms", "glue_ms", "pair_batch_ms",
             "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
             "against_jax_max_ulps", "against_jax_max_err", "calls",
-            "launch_ms", "pct_of_bound_with_wrapper")}
+            "launch_ms", "pct_of_bound_with_wrapper", "by_patch_size")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,13 @@ using gn::sub;
 constexpr int kWarps = 8;            // rows (flat: pairs of pairs) a block
 constexpr int kSlots = 8;            // live slots a warp step: 2, 4, 8, 32
 constexpr int kLanes = 32 / kSlots;  // lanes a slot
-constexpr int kMaxSide = 64;         // P^2 samples a side
+// A patch side's P^2 samples on the 32 lanes of the twin's `_lane_sum`, S
+// a lane (sample s on lane s % 32, slot s // 32): S = 2 for P^2 <= 64 (P
+// <= 7), S = 4 for P^2 <= 128 (P = 9, 11). Every kernel that reads a
+// patch is compiled for both; the S = 2 instances are the kernels as they
+// were before P = 9 and 11 were taken.
+constexpr int kMaxSide = 128;        // P^2 samples a side
+__host__ __device__ constexpr int side_slots(int pp) { return pp <= 64 ? 2 : 4; }
 constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kSlots >= 2 && kSlots <= 32 && (kSlots & (kSlots - 1)) == 0,
@@ -155,43 +161,56 @@ __device__ __forceinline__ F4 slot_sum(F4 v) {
   return F4{slot_sum(v.a), slot_sum(v.b), slot_sum(v.c), slot_sum(v.d)};
 }
 
-// ---- patches: lane h of a half holds samples h, h + 16, h + 32, h + 48
-// of each side ----
+// ---- patches: lane h of a half holds samples h + 16 k, k < 2 S, of
+// each side ----
 
+template <int S>
 struct Side {
-  float v[4], ss, mean;              // centred samples, sum of squares
+  float v[2 * S], ss, mean;          // centred samples, sum of squares
 };
 
+template <int S>
 struct Patch {
-  Side p, m;                         // plus, minus
+  Side<S> p, m;                      // plus, minus
   bool okp, okm;
 };
 
 struct Gate {
-  int pp;                            // P * P <= 64 samples a side
+  int pp;                            // P * P <= 128 samples a side
   float inv_pp, eps, eps2;
 };
 
-// a lane's share of a side sum: the twin's lane s % 32 adds samples s and
-// s + 32, and its butterfly's first level adds lanes h and h + 16, so lane
-// h's part is (x[h] + x[h + 32]) + (x[h + 16] + x[h + 48])
-__device__ __forceinline__ float fold4(const float v[4]) {
-  return add(add(v[0], v[2]), add(v[1], v[3]));
+// a lane's share of a side sum: the twin's lane l adds samples l + 32 j,
+// j < S, in order, and its butterfly's first level adds lanes h and
+// h + 16, so lane h's part is the in-order sum of x[h + 32 j] (v[2 j])
+// plus that of x[h + 16 + 32 j] (v[2 j + 1]); at S = 2,
+// (x[h] + x[h + 32]) + (x[h + 16] + x[h + 48])
+template <int S>
+__device__ __forceinline__ float fold(const float v[2 * S]) {
+  float a = add(v[0], v[2]), b = add(v[1], v[3]);
+#pragma unroll
+  for (int j = 2; j < S; ++j) {
+    a = add(a, v[2 * j]);
+    b = add(b, v[2 * j + 1]);
+  }
+  return add(a, b);
 }
 
 // a side's samples minus their mean, and its sum of squares (the twin's
 // `_centred`); samples past P^2 are 0 and stay 0
-__device__ __forceinline__ Side centre(const float x[4], const bool has[4],
-                                       float inv_pp) {
-  Side s;
-  s.mean = mul(sum16(fold4(x)), inv_pp);
-  float sq[4];
+template <int S>
+__device__ __forceinline__ Side<S> centre(const float x[2 * S],
+                                          const bool has[2 * S],
+                                          float inv_pp) {
+  Side<S> s;
+  s.mean = mul(sum16(fold<S>(x)), inv_pp);
+  float sq[2 * S];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 2 * S; ++k) {
     s.v[k] = has[k] ? sub(x[k], s.mean) : 0.0f;
     sq[k] = mul(s.v[k], s.v[k]);
   }
-  s.ss = sum16(fold4(sq));
+  s.ss = sum16(fold<S>(sq));
   return s;
 }
 
@@ -206,22 +225,22 @@ __device__ __forceinline__ float as_float<__nv_bfloat16>(__nv_bfloat16 v) {
 
 // FLAT [plus | minus] patches of float32 (or bf16) at `row`, with its two
 // ok flags, mean-centred
-template <typename T>
-__device__ __forceinline__ Patch load_patch(const T* __restrict__ row,
-                                            const uint8_t* __restrict__ ok,
-                                            const Gate& g, int h) {
-  bool has[4];
-  float pv[4], mv[4];
+template <int S, typename T>
+__device__ __forceinline__ Patch<S> load_patch(const T* __restrict__ row,
+                                               const uint8_t* __restrict__ ok,
+                                               const Gate& g, int h) {
+  bool has[2 * S];
+  float pv[2 * S], mv[2 * S];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 2 * S; ++k) {
     const int s = h + 16 * k;
     has[k] = s < g.pp;
     pv[k] = has[k] ? as_float<T>(row[s]) : 0.0f;
     mv[k] = has[k] ? as_float<T>(row[g.pp + s]) : 0.0f;
   }
-  Patch p;
-  p.p = centre(pv, has, g.inv_pp);
-  p.m = centre(mv, has, g.inv_pp);
+  Patch<S> p;
+  p.p = centre<S>(pv, has, g.inv_pp);
+  p.m = centre<S>(mv, has, g.inv_pp);
   p.okp = ok[0] != 0;
   p.okm = ok[1] != 0;
   return p;
@@ -236,12 +255,13 @@ __device__ __forceinline__ float ncc_score(float cross, float ssa, float ssb,
   return (ssa < g.eps || ssb < g.eps || !ok) ? -1.0f : score;
 }
 
-__device__ __forceinline__ float ncc1(const Side& a, const Side& b, bool ok,
-                                      const Gate& g) {
-  float pr[4];
+template <int S>
+__device__ __forceinline__ float ncc1(const Side<S>& a, const Side<S>& b,
+                                      bool ok, const Gate& g) {
+  float pr[2 * S];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) pr[k] = mul(a.v[k], b.v[k]);
-  return ncc_score(sum16(fold4(pr)), a.ss, b.ss, ok, g);
+  for (int k = 0; k < 2 * S; ++k) pr[k] = mul(a.v[k], b.v[k]);
+  return ncc_score(sum16(fold<S>(pr)), a.ss, b.ss, ok, g);
 }
 
 // the NCC gate: the max of the 4 side pairings (`ncc4_lanes`)
@@ -249,7 +269,8 @@ __device__ __forceinline__ float max4(const F4& s) {
   return tmax(tmax(s.a, s.b), tmax(s.c, s.d));
 }
 
-__device__ __forceinline__ float ncc4(const Patch& a, const Patch& b,
+template <int S>
+__device__ __forceinline__ float ncc4(const Patch<S>& a, const Patch<S>& b,
                                       const Gate& g) {
   return max4(F4{ncc1(a.p, b.p, a.okp && b.okp, g),
                  ncc1(a.m, b.m, a.okm && b.okm, g),
@@ -314,8 +335,9 @@ __host__ __device__ constexpr int terms_stride(int S) {
 }
 
 // One half-warp a (row, side) of the table: S sides a row, each a FLAT
-// [plus | minus] patch and a 32-uint4 descriptor.
-template <typename T>
+// [plus | minus] patch (L samples a lane of a side) and a 32-uint4
+// descriptor.
+template <typename T, int L>
 __global__ void __launch_bounds__(kWarps * 32)
 dense_gates_prep_kernel(const T* __restrict__ pat,
                         const uint4* __restrict__ desc, int R, int S,
@@ -327,18 +349,18 @@ dense_gates_prep_kernel(const T* __restrict__ pat,
   const int u = min(u0 + (lane >> 4), total - 1);
   const int row = u / S, side = u - row * S;
   const int two = 2 * g.pp;
-  bool has[4];
-  float pv[4], mv[4];
+  bool has[2 * L];
+  float pv[2 * L], mv[2 * L];
   const T* src = pat + (size_t)u * two;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 2 * L; ++k) {
     const int s = h + 16 * k;
     has[k] = s < g.pp;
     pv[k] = has[k] ? as_float<T>(src[s]) : 0.0f;
     mv[k] = has[k] ? as_float<T>(src[g.pp + s]) : 0.0f;
   }
-  const Side sp = centre(pv, has, g.inv_pp);
-  const Side sm = centre(mv, has, g.inv_pp);
+  const Side<L> sp = centre<L>(pv, has, g.inv_pp);
+  const Side<L> sm = centre<L>(mv, has, g.inv_pp);
   const Desc d = load_desc(desc + (size_t)u * 32, h);
   if (h == 0 && u0 + (lane >> 4) < total) {
     float* r = terms + (size_t)row * terms_stride(S);
@@ -350,8 +372,9 @@ dense_gates_prep_kernel(const T* __restrict__ pat,
 
 // ---- a row's own terms, in the warp's shared memory ----
 
+template <int S>
 struct RowPatch {
-  float v[2][kMaxSide];              // [plus | minus] centred, 0 past P^2
+  float v[2][32 * S];                // [plus | minus] centred, 0 past P^2
   float ss[2];
   bool ok[2];
 };
@@ -362,10 +385,11 @@ struct RowDesc {
 };
 
 // lane h of a half-warp writes its share of a patch `load_patch` formed
-__device__ __forceinline__ void keep_patch(RowPatch& r, const Patch& p,
+template <int S>
+__device__ __forceinline__ void keep_patch(RowPatch<S>& r, const Patch<S>& p,
                                            int h) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 2 * S; ++k) {
     r.v[0][h + 16 * k] = p.p.v[k];
     r.v[1][h + 16 * k] = p.m.v[k];
   }
@@ -393,9 +417,10 @@ __device__ __forceinline__ void keep_desc(RowDesc& r, const Desc& d, int h) {
 
 // the NCC gate of the row's patch `a` against candidate patch `b` (FLAT,
 // float32 or bf16) with its stored terms {mean+, ss+, mean-, ss-} and ok
-// flags: leaf l adds samples l and l + 32 of the 4 pairings' products
-template <typename T>
-__device__ __forceinline__ float ncc_pair(const RowPatch& a,
+// flags: leaf l adds samples l + 32 j, j < S, of the 4 pairings' products
+// in order
+template <int S, typename T>
+__device__ __forceinline__ float ncc_pair(const RowPatch<S>& a,
                                           const T* __restrict__ b,
                                           const float4 bt,
                                           const uint8_t* __restrict__ bok,
@@ -409,7 +434,10 @@ __device__ __forceinline__ float ncc_pair(const RowPatch& a,
   };
   const auto leaf = [&](auto I) {
     const int l = hl + kLanes * decltype(I)::value;
-    return add(prod(l), prod(l + 32));
+    F4 x = add(prod(l), prod(l + 32));
+#pragma unroll
+    for (int j = 2; j < S; ++j) x = add(x, prod(l + 32 * j));
+    return x;
   };
   const F4 x = slot_sum(lane_tree<32 / kLanes, 1, 0>(leaf));
   const bool okp = bok[0] != 0, okm = bok[1] != 0;
@@ -521,9 +549,10 @@ struct StereoParams {
   float *dist, *ncc;                 // (N, C) each
 };
 
+template <int S>
 __global__ void __launch_bounds__(kWarps * 32)
 dense_gates_stereo_kernel(const StereoParams p) {
-  __shared__ RowPatch s_pat[kWarps];
+  __shared__ RowPatch<S> s_pat[kWarps];
   __shared__ RowDesc s_desc[kWarps];
   __shared__ uint8_t s_c[kWarps][64];
   __shared__ int s_j[kWarps][64];
@@ -545,8 +574,8 @@ dense_gates_stereo_kernel(const StereoParams p) {
   // overlap); half-warp 0 keeps them
   const int two = 2 * p.g.pp;
   const Desc d = load_desc(p.l_desc + (size_t)i * 32, h);
-  const Patch l = load_patch(p.l_pat + (size_t)i * two,
-                             p.l_ok + 2 * (size_t)i, p.g, h);
+  const Patch<S> l = load_patch<S>(p.l_pat + (size_t)i * two,
+                                   p.l_ok + 2 * (size_t)i, p.g, h);
   if (lane < 16) {
     keep_desc(s_desc[w], d, h);
     keep_patch(s_pat[w], l, h);
@@ -590,9 +619,10 @@ struct TemporalParams {
 
 // at most 80 registers (3 blocks an SM), no spill; at 128 it takes 109
 // and is 7.5% slower (PERF.md)
+template <int S>
 __global__ void __launch_bounds__(kWarps * 32, 3)
 dense_gates_temporal_kernel(const TemporalParams p) {
-  __shared__ RowPatch s_pat[kWarps][2];
+  __shared__ RowPatch<S> s_pat[kWarps][2];
   __shared__ RowDesc s_desc[kWarps][2];
   __shared__ uint8_t s_c[kWarps][64];
   __shared__ int s_j[kWarps][64];
@@ -612,10 +642,11 @@ dense_gates_temporal_kernel(const TemporalParams p) {
   // the row's own terms, read before its slots are known (the loads
   // overlap): half-warp 0 the left side's, 1 the right's
   const int two = 2 * p.g.pp, side = lane >> 4;
-  const Patch k = load_patch((side ? p.kf_pat_r : p.kf_pat_l)
-                                 + (size_t)i * two,
-                             (side ? p.kf_ok_r : p.kf_ok_l) + 2 * (size_t)i,
-                             p.g, h);
+  const Patch<S> k = load_patch<S>((side ? p.kf_pat_r : p.kf_pat_l)
+                                       + (size_t)i * two,
+                                   (side ? p.kf_ok_r : p.kf_ok_l)
+                                       + 2 * (size_t)i,
+                                   p.g, h);
   keep_patch(s_pat[w][side], k, h);
   const Desc d = load_desc((side ? p.kf_desc_r : p.kf_desc_l)
                                + (size_t)i * 32, h);
@@ -657,6 +688,7 @@ struct FlatParams {
 };
 
 // one pair a half-warp
+template <int S>
 __global__ void __launch_bounds__(kWarps * 32)
 dense_gates_flat_kernel(const FlatParams p) {
   const int lane = threadIdx.x & 31, h = lane & 15;
@@ -670,10 +702,10 @@ dense_gates_flat_kernel(const FlatParams p) {
   if (__any_sync(kFull, mine && p.live[f])) {
     const int two = 2 * p.g.pp;
     const long long r = p.rows[f];
-    const Patch l = load_patch(p.l_pat + (size_t)r * two,
-                               p.l_ok + 2 * (size_t)r, p.g, h);
-    const Patch b = load_patch(p.r_pat + (size_t)f * two,
-                               p.r_ok + 2 * (size_t)f, p.g, h);
+    const Patch<S> l = load_patch<S>(p.l_pat + (size_t)r * two,
+                                     p.l_ok + 2 * (size_t)r, p.g, h);
+    const Patch<S> b = load_patch<S>(p.r_pat + (size_t)f * two,
+                                     p.r_ok + 2 * (size_t)f, p.g, h);
     const float x = ncc4(l, b, p.g);
     if (p.live[f]) s = x;
   }
@@ -685,20 +717,48 @@ __host__ inline Gate make_gate(int P, float inv_pp, float eps, float eps2) {
 }
 
 __host__ inline bool bad_gate(int P) {
-  return P <= 0 || P * P > kMaxSide;
+  return P <= 0 || P % 2 == 0 || P * P > kMaxSide;
 }
 
 __host__ inline unsigned blocks(long long n) {
   return (unsigned)((n + kWarps - 1) / kWarps);
 }
 
-// the prep pass over R rows of S sides
-template <typename T>
+// the prep pass over R rows of S sides, L samples a lane of a side
+template <typename T, int L>
 __host__ inline void prep(const T* pat, const void* desc, int R, int S,
                           const Gate& g, float* terms, cudaStream_t stream) {
-  dense_gates_prep_kernel<T><<<blocks(((long long)R * S + 1) / 2),
-                               kWarps * 32, 0, stream>>>(
+  dense_gates_prep_kernel<T, L><<<blocks(((long long)R * S + 1) / 2),
+                                  kWarps * 32, 0, stream>>>(
       pat, static_cast<const uint4*>(desc), R, S, g, terms);
+}
+
+// the stereo entry's two launches at L samples a lane
+template <int L>
+__host__ inline int stereo_launch(const StereoParams& p, const float* r_pat,
+                                  const void* r_desc, int Nr,
+                                  float* r_terms, cudaStream_t stream) {
+  if (Nr > 0) {
+    prep<float, L>(r_pat, r_desc, Nr, 1, p.g, r_terms, stream);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  dense_gates_stereo_kernel<L><<<blocks(p.N), kWarps * 32, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the temporal entry's two launches at L samples a lane
+template <int L>
+__host__ inline int temporal_launch(const TemporalParams& p, const void* cf_desc,
+                                    int Mc, float* cf_terms,
+                                    cudaStream_t stream) {
+  if (Mc > 0) {
+    prep<__nv_bfloat16, L>(p.cf_pat, cf_desc, Mc, 2, p.g, cf_terms, stream);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  dense_gates_temporal_kernel<L><<<blocks(p.M), kWarps * 32, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -714,18 +774,14 @@ extern "C" int dense_gates_stereo_launch(
   if (N <= 0 || C <= 0) return (int)cudaGetLastError();
   if (C > 64 || bad_gate(P) || Nr < 0) return (int)cudaErrorInvalidValue;
   const Gate g = make_gate(P, inv_pp, eps, eps2);
-  if (Nr > 0) {
-    prep(r_pat, r_desc, Nr, 1, g, r_terms, stream);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
   const size_t plane = (size_t)N * C;
   StereoParams p{static_cast<const uint4*>(l_desc),
                  static_cast<const uint4*>(r_desc),
                  cand, cmask, N, C, l_pat, r_pat, l_ok, r_ok, r_terms, g,
                  sift, fill_dist, fill_ncc, out, out + plane};
-  dense_gates_stereo_kernel<<<blocks(N), kWarps * 32, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return side_slots(g.pp) == 2
+             ? stereo_launch<2>(p, r_pat, r_desc, Nr, r_terms, stream)
+             : stereo_launch<4>(p, r_pat, r_desc, Nr, r_terms, stream);
 }
 
 // Launches the prep pass over the Mc CF rows (into `cf_terms`, (Mc, 12)
@@ -741,18 +797,14 @@ extern "C" int dense_gates_temporal_launch(
   if (C > 64 || bad_gate(P) || Mc < 0) return (int)cudaErrorInvalidValue;
   const Gate g = make_gate(P, inv_pp, eps, eps2);
   const __nv_bfloat16* cp = static_cast<const __nv_bfloat16*>(cf_pat);
-  if (Mc > 0) {
-    prep(cp, cf_desc, Mc, 2, g, cf_terms, stream);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
   TemporalParams p{kf_pat_l, kf_pat_r, kf_ok_l, kf_ok_r,
                    static_cast<const uint4*>(kf_desc_l),
                    static_cast<const uint4*>(kf_desc_r), cp, cf_ok,
                    static_cast<const uint4*>(cf_desc), cf_terms, cf_idx,
                    cmask, M, C, g, fill_ncc, fill_dist, out};
-  dense_gates_temporal_kernel<<<blocks(M), kWarps * 32, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return side_slots(g.pp) == 2
+             ? temporal_launch<2>(p, cf_desc, Mc, cf_terms, stream)
+             : temporal_launch<4>(p, cf_desc, Mc, cf_terms, stream);
 }
 
 extern "C" int dense_gates_flat_launch(
@@ -764,8 +816,12 @@ extern "C" int dense_gates_flat_launch(
   if (bad_gate(P)) return (int)cudaErrorInvalidValue;
   FlatParams p{l_pat, l_ok, rows, r_pat, r_ok, live, F,
                make_gate(P, inv_pp, eps, eps2), fill, out};
-  dense_gates_flat_kernel<<<blocks((F + 1) / 2), kWarps * 32, 0, stream>>>(
-      p);
+  if (side_slots(p.g.pp) == 2)
+    dense_gates_flat_kernel<2><<<blocks((F + 1) / 2), kWarps * 32, 0,
+                                 stream>>>(p);
+  else
+    dense_gates_flat_kernel<4><<<blocks((F + 1) / 2), kWarps * 32, 0,
+                                 stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -790,18 +846,32 @@ __host__ inline int kernel_info(K kernel, int* out) {
 
 }  // namespace
 
+namespace {
+
+// the five kernels at L samples a lane, 5 ints each
+template <int L>
+__host__ inline int info_l(int* out) {
+  int err = kernel_info(dense_gates_prep_kernel<float, L>, out);
+  if (!err)
+    err = kernel_info(dense_gates_prep_kernel<__nv_bfloat16, L>, out + 5);
+  if (!err) err = kernel_info(dense_gates_stereo_kernel<L>, out + 10);
+  if (!err) err = kernel_info(dense_gates_temporal_kernel<L>, out + 15);
+  if (!err) err = kernel_info(dense_gates_flat_kernel<L>, out + 20);
+  return err;
+}
+
+}  // namespace
+
 // What the built kernels are on this card, 5 ints each for the prep pass
 // over a float32 (stereo) and a bf16 (temporal) table, the stereo, the
 // temporal and the flat gates: warps a block, registers a thread, local
 // (spill) bytes a thread, static shared bytes a block, blocks an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); then out[25] = the
-// slots a warp step.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at 2 samples a lane
+// (P <= 7) in out[0..24]; then out[25] = the slots a warp step; then the
+// same 25 at 4 samples a lane (P = 9, 11) in out[26..50].
 extern "C" int dense_gates_info(int* out) {
-  int err = kernel_info(dense_gates_prep_kernel<float>, out);
-  if (!err) err = kernel_info(dense_gates_prep_kernel<__nv_bfloat16>, out + 5);
-  if (!err) err = kernel_info(dense_gates_stereo_kernel, out + 10);
-  if (!err) err = kernel_info(dense_gates_temporal_kernel, out + 15);
-  if (!err) err = kernel_info(dense_gates_flat_kernel, out + 20);
+  int err = info_l<2>(out);
   out[25] = kSlots;
+  if (!err) err = info_l<4>(out + 26);
   return err;
 }

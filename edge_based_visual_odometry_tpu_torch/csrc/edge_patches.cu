@@ -28,7 +28,8 @@
 // Design: a block takes kEdges edges. First one thread an edge forms the
 // edge's terms once (sinf, cosf, the two shifted centres, the tile
 // origins) into shared memory, beside a table of the 2 P^2 samples'
-// offsets; a block whose edges are all dead returns there. Then the
+// offsets (up to 242, P = 11); a block whose edges are all dead returns
+// there. Then the
 // block's threads sweep its kEdges x 2 P^2 contiguous output floats, two
 // samples of one edge a thread a step (one 8-byte store; the edge's
 // terms read once for both): no idle slot, coalesced stores, and a
@@ -60,7 +61,7 @@ using gn::sub;
 
 constexpr int kThreads = 256;
 constexpr int kEdges = 32;           // edges a block
-constexpr int kMaxSamples = 128;     // 2 P^2
+constexpr int kMaxSamples = 242;     // 2 P^2, odd P <= 11
 
 // an edge's terms, formed once
 struct EdgeTerms {
@@ -177,7 +178,7 @@ extern "C" int edge_patches_launch(const float* img, int H, int W,
                                    int stride, float* out, uint8_t* ok,
                                    cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (P <= 0 || 2 * P * P > kMaxSamples || H <= 0 || W <= 0)
+  if (P <= 0 || P % 2 == 0 || 2 * P * P > kMaxSamples || H <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
   edge_patches_kernel<<<(B + kEdges - 1) / kEdges, kThreads, 0, stream>>>(
       img, H, W, x, y, theta, live, B, P, shift, tile, stride, out, ok);

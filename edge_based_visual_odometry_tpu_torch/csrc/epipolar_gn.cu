@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel `refine_along_epipolar_pallas` (body
 // `_gn_kernel`) of edge_based_visual_odometry_tpu/ops/gn_pallas.py, which
 // computes what ops/gauss_newton.py::refine_along_epipolar_batch computes
-// per stereo candidate: two rotated 7x7 side patches at +-(P/2 + 1) along
+// per stereo candidate: two rotated P x P side patches (7 x 7 by
+// default) at +-(P/2 + 1) along
 // the left-edge normal, sampled bilinearly from the right image and its
 // gx/gy and mean-centred, against the centred left patches; Huber weights
 // (delta = huber); gradient term -gx*dx + gy*dy; a scalar normal
@@ -16,11 +17,14 @@
 // weight, then 5 butterfly reductions), while the three 376 x 1241 maps
 // (5.6 MB) stay in L2 and the samples of an iteration mostly hit L1.
 //
-// Design: one warp per candidate. The 98 samples are spread over the 32
-// lanes (<= 4 each); the two patch means and H, b, cost are warp-shuffle
+// Design: one warp per candidate. The 2 P^2 samples (98 at P = 7) are
+// spread over the 32 lanes, NS slots each (gn_common.cuh `slots_for`: 4
+// up to P = 7, 6 at P = 9, 8 at P = 11; the kernel is compiled for each
+// NS, and the P <= 7 instance is the kernel as it was before P = 9 and
+// 11 were taken); the two patch means and H, b, cost are warp-shuffle
 // butterfly reductions, so every lane holds the same scalar state and the
 // warp leaves its loop as soon as its candidate converges - no lane waits
-// for another candidate. The 4 sample slots carry no branches (a lane
+// for another candidate. The NS sample slots carry no branches (a lane
 // past the samples recomputes sample 0 and adds nothing), so their loads
 // overlap. Each map sample is 4 16-byte `__ldg` gathers of interleaved
 // {right, gx, gy, -} pixels (the first version: 12 4-byte gathers of
@@ -54,6 +58,7 @@ using namespace gn;
 
 constexpr int WARPS = 8;       // candidates per block
 
+template <int NS>
 __global__ void __launch_bounds__(WARPS * 32)
 epipolar_gn_kernel(const float* __restrict__ left,
                    const float4* __restrict__ maps4, int H, int W,
@@ -101,8 +106,8 @@ epipolar_gn_kernel(const float* __restrict__ left,
   const float ox = tile_origin(rx, tile, stride, W);
   const float oy = tile_origin(ry, tile, stride, H);
   const float t1 = tile - 1.0f;
-  const Slots sl = make_slots(lane, P);
-  const Rotated rot = rotate(sl, ct, st);
+  const Slots<NS> sl = make_slots<NS>(lane, P);
+  const Rotated<NS> rot = rotate(sl, ct, st);
   float lc[NS];     // centred left patches (sampled once)
   centred_patches(left, H, W, lx, ly, nsx, nsy, sl, rot, inv_pp, lc);
 
@@ -170,10 +175,17 @@ extern "C" int refine_along_epipolar_launch(
     int it0, int it_stop, int max_iter, int patch_size, int tile, int stride,
     float tol, float huber, float* alpha, float* score, float* conf,
     bool* valid, int* iters, bool* done, cudaStream_t stream) {
-  if (2 * patch_size * patch_size > 32 * NS || tile < 1)
-    return (int)cudaErrorInvalidValue;
+  // odd patch sizes up to 11, each on the slots it needs
+  decltype(&epipolar_gn_kernel<4>) kernel = nullptr;
+  switch (patch_size) {
+    case 1: case 3: case 5: case 7: kernel = epipolar_gn_kernel<4>; break;
+    case 9: kernel = epipolar_gn_kernel<slots_for(9)>; break;
+    case 11: kernel = epipolar_gn_kernel<slots_for(11)>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (tile < 1) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  epipolar_gn_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+  kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       left, reinterpret_cast<const float4*>(maps4), H, W, lx, ly, lt, rx, ry,
       epi_dir, alpha0, active, B, it0, it_stop, max_iter, patch_size, tile,
       stride, tol, huber, alpha, score, conf, valid, iters, done);

@@ -50,13 +50,15 @@
 //     converged takes the next one and no block holds its SM for its
 //     slowest lane. A lane's arithmetic does not depend on which warp runs
 //     it or when.
-// `__launch_bounds__` asks for kMinBlocks blocks of kWarps warps an SM:
-// 4 x 256 threads, so <= 64 registers and 32 warps an SM (a few bytes
-// spill; measured faster than 3 blocks at <= 80 registers and 2 at up to
-// 128); `refine_2dof_info` reports the registers, spills and the blocks
-// an SM holds. The kernels are compiled for each patch size (a template
-// argument), so the slots' offsets, halves and presence fold into
-// constants. In the direct launch, the lanes of one KF mate lie next to
+// `__launch_bounds__` asks for min_blocks(P) blocks of kWarps warps an
+// SM: up to P = 7, 4 x 256 threads, so <= 64 registers and 32 warps an SM
+// (a few bytes spill; measured faster than 3 blocks at <= 80 registers
+// and 2 at up to 128); at P = 9 and 11, whose threads hold 6 and 8
+// samples (gn_common.cuh `slots_for`), 2 blocks (<= 128 registers);
+// `refine_2dof_info` reports the registers, spills and the blocks an SM
+// holds at each patch size. The kernels are compiled for each patch size
+// (a template argument), so the slots' offsets, halves and presence fold
+// into constants. In the direct launch, the lanes of one KF mate lie next to
 // each other (`_flatten_active`), so the first warp of each run of equal
 // mates in a block samples the centred KF patches once into shared
 // memory and the run's other warps read them. (Measured and not kept,
@@ -80,7 +82,8 @@ using namespace gn;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int kWarps = 8;          // warps a block
-constexpr int kMinBlocks = 4;      // blocks an SM (__launch_bounds__)
+// blocks an SM (__launch_bounds__) at patch size P
+__host__ __device__ constexpr int min_blocks(int P) { return P <= 7 ? 4 : 2; }
 
 // One launch over `nsides` sides of B lanes. Lane operand v of lane i of
 // side s is v[s * sstride + i * lstride]; outputs are (nsides, B[, 2]).
@@ -147,8 +150,9 @@ __device__ __forceinline__ void write_lane(const K3Params& p, int g, float dx,
 }
 
 // the centred KF patches of a lane (this thread's slots)
+template <int NS>
 __device__ __forceinline__ void kf_patches(const K3Params& p, const Lane& l,
-                                           const Slots& sl, float inv_pp,
+                                           const Slots<NS>& sl, float inv_pp,
                                            float side, float kc[NS]) {
   const float c = cosf(l.kt), s = sinf(l.kt);
   centred_patches(l.s ? p.kf1 : p.kf0, p.H, p.W, l.kx, l.ky, mul(-s, side),
@@ -157,10 +161,10 @@ __device__ __forceinline__ void kf_patches(const K3Params& p, const Lane& l,
 
 // iterations [p.it0, p.it_stop) of one lane from (l.dx, l.dy) on the
 // centred KF patches kc; writes the lane's outputs
-template <int P>
+template <int P, int NS = slots_for(P)>
 __device__ __forceinline__ void iterate(const K3Params& p, const Lane& l,
-                                        const Slots& sl, const float kc[NS],
-                                        int lane) {
+                                        const Slots<NS>& sl,
+                                        const float kc[NS], int lane) {
   constexpr int pp = P * P;
   constexpr int n_samples = 2 * pp;
   const float side = P / 2.0f + 1.0f;
@@ -170,7 +174,7 @@ __device__ __forceinline__ void iterate(const K3Params& p, const Lane& l,
   const float reg = (float)(1e-6 * n_samples);
   const float4* maps = p.maps + (size_t)l.s * p.H * p.W;
   const float cc = cosf(l.ct), sc = sinf(l.ct);
-  const Rotated rot = rotate(sl, cc, sc);
+  const Rotated<NS> rot = rotate(sl, cc, sc);
   const float nsx = mul(-sc, side), nsy = mul(cc, side);   // CF normal * side
   const float ox = tile_origin(l.cx, p.tile, p.stride, p.W);
   const float oy = tile_origin(l.cy, p.tile, p.stride, p.H);
@@ -255,8 +259,8 @@ __device__ __forceinline__ void iterate(const K3Params& p, const Lane& l,
 
 // one warp per (side, lane): phase 1 and the one-launch form; P the
 // patch size (2 P^2 <= 32 NS)
-template <int P>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+template <int P, int NS = slots_for(P)>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(P))
 gn_2dof_direct(const K3Params p) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -265,7 +269,7 @@ gn_2dof_direct(const K3Params p) {
   const int s = in ? g / p.B : 0;
   const int i = in ? g - s * p.B : 0;
   const bool act = in && p.active[i];
-  const Slots sl = make_slots(lane, P);
+  const Slots<NS> sl = make_slots<NS>(lane, P);
   const float side = P / 2.0f + 1.0f;
   const float inv_pp = 1.0f / (P * P);
   // lanes of one KF mate lie next to each other: the first warp of a run
@@ -325,8 +329,8 @@ __device__ __forceinline__ int nth_pending(const int* cum, int base, int B,
 }
 
 // phase 2: persistent warps over the queue of selected lanes
-template <int P>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+template <int P, int NS = slots_for(P)>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(P))
 gn_2dof_queue(const K3Params p) {
   const int lane = threadIdx.x & 31;
   const int c0 = __ldg(p.cum_done + p.B - 1);            // side 0's done
@@ -335,7 +339,7 @@ gn_2dof_queue(const K3Params p) {
                       ? min(p.B - (__ldg(p.cum_done + 2 * p.B - 1) - c0),
                             p.budget)
                       : 0);
-  const Slots sl = make_slots(lane, P);
+  const Slots<NS> sl = make_slots<NS>(lane, P);
   const float side = P / 2.0f + 1.0f;
   const float inv_pp = 1.0f / (P * P);
   for (;;) {
@@ -383,7 +387,7 @@ int launch_p(const K3Params& p, cudaStream_t stream) {
 }
 
 // the kernels are compiled for each patch size the wrappers take (odd,
-// 2 P^2 <= 128)
+// P <= 11: 2 P^2 <= 242)
 int launch(const K3Params& p, cudaStream_t stream) {
   if (p.tile < 1) return (int)cudaErrorInvalidValue;
   if (p.B <= 0) return (int)cudaGetLastError();
@@ -392,6 +396,8 @@ int launch(const K3Params& p, cudaStream_t stream) {
     case 3: return launch_p<3>(p, stream);
     case 5: return launch_p<5>(p, stream);
     case 7: return launch_p<7>(p, stream);
+    case 9: return launch_p<9>(p, stream);
+    case 11: return launch_p<11>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -442,14 +448,16 @@ extern "C" int refine_2dof_sides_launch(
 }
 
 // Registers, local (spill) bytes and blocks an SM holds of the two
-// kernels at patch size 7, and the warps of a block: out[0..6] = warps
-// per block, direct {registers, local bytes, blocks per SM}, queue {the
-// same}.
-extern "C" int refine_2dof_info(int* out) {
+// kernels at each patch size (1, 3, 5, 7, 9, 11), and the warps of a
+// block: out[0] = warps per block, then per patch size, in that order,
+// 7 ints: the patch size, direct {registers, local bytes, blocks per SM},
+// queue {the same}.
+template <int P>
+int info_p(int* out) {
   cudaFuncAttributes a{};
-  out[0] = kWarps;
-  const void* fns[2] = {(const void*)gn_2dof_direct<7>,
-                        (const void*)gn_2dof_queue<7>};
+  const void* fns[2] = {(const void*)gn_2dof_direct<P>,
+                        (const void*)gn_2dof_queue<P>};
+  out[0] = P;
   for (int k = 0; k < 2; ++k) {
     cudaError_t e = cudaFuncGetAttributes(&a, fns[k]);
     if (e != cudaSuccess) return (int)e;
@@ -462,4 +470,15 @@ extern "C" int refine_2dof_info(int* out) {
     out[3 + 3 * k] = per_sm;
   }
   return 0;
+}
+
+extern "C" int refine_2dof_info(int* out) {
+  out[0] = kWarps;
+  int err = info_p<1>(out + 1);
+  if (!err) err = info_p<3>(out + 8);
+  if (!err) err = info_p<5>(out + 15);
+  if (!err) err = info_p<7>(out + 22);
+  if (!err) err = info_p<9>(out + 29);
+  if (!err) err = info_p<11>(out + 36);
+  return err;
 }

@@ -6,8 +6,10 @@
 //
 // One warp refines one lane. The 2 P^2 samples of the plus and minus
 // patches are spread over the 32 threads, sample s = thread + 32 k in slot
-// k < NS. Every sum is the thread's slots in order, then a butterfly over
-// the warp, the order the plain twins' `_lane_sum` follows.
+// k < NS, NS = max(4, ceil(2 P^2 / 32)) (`slots_for`: 4 up to P = 7, 6 at
+// P = 9, 8 at P = 11). Every sum is the thread's slots in order, then a
+// butterfly over the warp, the order the plain twins' `_lane_sum`
+// follows.
 
 #pragma once
 
@@ -16,7 +18,11 @@
 
 namespace gn {
 
-constexpr int NS = 4;          // samples per thread: 2 * P * P <= 32 * NS
+// samples a thread for patch size P: 2 P^2 <= 32 NS, and at least 4 (the
+// kernels' slots up to P = 7)
+__host__ __device__ constexpr int slots_for(int P) {
+  return (2 * P * P + 31) / 32 > 4 ? (2 * P * P + 31) / 32 : 4;
+}
 
 // no FMA contraction: each multiply and add rounds on its own, as in the
 // plain twins
@@ -109,14 +115,16 @@ __device__ __forceinline__ void read3(const float4* __restrict__ m,
 // patch half (+1 plus, -1 minus). A slot past the 2 P^2 samples
 // (has = false) computes sample 0 again and adds nothing, so its reads
 // stay inside the patch and the slots carry no branches.
+template <int NS>
 struct Slots {
   float oi[NS], oj[NS], sgn[NS];
   bool has[NS];
 };
 
-__device__ __forceinline__ Slots make_slots(int lane, int P) {
+template <int NS>
+__device__ __forceinline__ Slots<NS> make_slots(int lane, int P) {
   const int pp = P * P, half = P / 2;
-  Slots sl;
+  Slots<NS> sl;
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     const int s_ = lane + 32 * k;
@@ -131,12 +139,15 @@ __device__ __forceinline__ Slots make_slots(int lane, int P) {
 
 // the slots' offsets rotated by the angle with cosine c and sine s:
 // (c i, s j, s i, c j)
+template <int NS>
 struct Rotated {
   float cti[NS], stj[NS], sti[NS], ctj[NS];
 };
 
-__device__ __forceinline__ Rotated rotate(const Slots& sl, float c, float s) {
-  Rotated r;
+template <int NS>
+__device__ __forceinline__ Rotated<NS> rotate(const Slots<NS>& sl, float c,
+                                              float s) {
+  Rotated<NS> r;
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     r.cti[k] = mul(c, sl.oi[k]);
@@ -149,9 +160,11 @@ __device__ __forceinline__ Rotated rotate(const Slots& sl, float c, float s) {
 
 // coordinates of slot k: the centre (x, y) moved by +-(nsx, nsy) (the
 // normal times the side offset) for its half, plus the rotated offset
-__device__ __forceinline__ void slot_xy(const Slots& sl, const Rotated& r,
-                                        int k, float x, float y, float nsx,
-                                        float nsy, float* px, float* py) {
+template <int NS>
+__device__ __forceinline__ void slot_xy(const Slots<NS>& sl,
+                                        const Rotated<NS>& r, int k, float x,
+                                        float y, float nsx, float nsy,
+                                        float* px, float* py) {
   const float cx = sl.sgn[k] > 0 ? add(x, nsx) : sub(x, nsx);
   const float cy = sl.sgn[k] > 0 ? add(y, nsy) : sub(y, nsy);
   *px = sub(add(cx, r.cti[k]), r.stj[k]);
@@ -159,9 +172,10 @@ __device__ __forceinline__ void slot_xy(const Slots& sl, const Rotated& r,
 }
 
 // the means of the plus and minus halves of the warp's slot values
-__device__ __forceinline__ void half_means(const Slots& sl, const float v[NS],
-                                           float inv_pp, float* mp,
-                                           float* mm) {
+template <int NS>
+__device__ __forceinline__ void half_means(const Slots<NS>& sl,
+                                           const float v[NS], float inv_pp,
+                                           float* mp, float* mm) {
   float sp = 0.0f, sm = 0.0f;
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
@@ -174,9 +188,10 @@ __device__ __forceinline__ void half_means(const Slots& sl, const float v[NS],
 
 // the mean-centred two-side patches around the edge (x, y) of `img`,
 // sampled once per lane from the 32 x 32 tile (atlas stride 8) around it
+template <int NS>
 __device__ __forceinline__ void centred_patches(
     const float* __restrict__ img, int H, int W, float x, float y, float nsx,
-    float nsy, const Slots& sl, const Rotated& r, float inv_pp,
+    float nsy, const Slots<NS>& sl, const Rotated<NS>& r, float inv_pp,
     float out[NS]) {
   const float ox = tile_origin(x, 32, 8, W);
   const float oy = tile_origin(y, 32, 8, H);

@@ -35,6 +35,7 @@ from edge_based_visual_odometry_tpu_torch.models.types import (
     FrameData, StereoMates, resolve_device, rig_arrays_from_rig)
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
+from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import toed
 
 
@@ -64,6 +65,20 @@ def _needs_undistort(cam) -> bool:
     return any(abs(d) > 0 for d in cam.distortion[:4])
 
 
+def check_config(cfg: VOConfig, device: torch.device):
+    """What the step builders check at construction: the reference's
+    patch-coverage guard on every device (`patches.check_coverage`: the
+    NCC patches of `patch_size` at `orthogonal_shift_mag` must fit the
+    32 / 8 atlas tile), and on CUDA the kernels' ranges
+    (`check_kernel_ranges`). Raises ValueError naming the fields."""
+    PAT.check_coverage(
+        cfg.patch_size, cfg.orthogonal_shift_mag,
+        what=f"VOConfig.patch_size = {cfg.patch_size!r} with "
+             f"VOConfig.orthogonal_shift_mag = {cfg.orthogonal_shift_mag!r}")
+    if device.type == "cuda":
+        CB.check_kernel_ranges(cfg)
+
+
 def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                       has_gt: bool = False,
                       record_distributions: bool = False):
@@ -72,11 +87,11 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
     float. A camera
     with non-zero distortion coefficients is undistorted on the device
     first. `has_gt`: the step takes the GT disparity map and the
-    non-occlusion mask and supervises the cascade with them. On CUDA a
-    setting outside a kernel's range raises here (`check_kernel_ranges`)."""
+    non-occlusion mask and supervises the cascade with them. A setting the
+    reference refuses, or on CUDA one outside a kernel's range, raises
+    here (`check_config`)."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        CB.check_kernel_ranges(cfg)
+    check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
     gather_ry = SM.derive_gather_band(rig, cfg)
     dists = [torch.tensor(cam.distortion[:4], dtype=torch.float32,
@@ -125,11 +140,11 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
                         use_gt: bool = False):
     """fn(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t, seed) ->
     TemporalResult; rel_R/rel_t is the KF->CF pose used for quad
-    prediction (GT with `use_gt`, predicted in production). On CUDA a
-    setting outside a kernel's range raises here (`check_kernel_ranges`)."""
+    prediction (GT with `use_gt`, predicted in production). A setting the
+    reference refuses, or on CUDA one outside a kernel's range, raises
+    here (`check_config`)."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        CB.check_kernel_ranges(cfg)
+    check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
 
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,

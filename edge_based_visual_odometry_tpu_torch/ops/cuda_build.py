@@ -177,14 +177,18 @@ def check_kernel_ranges(cfg):
     outside what a hand-written kernel takes: K4's and K6's slots a row
     (`max_candidates`, `max_quad_candidates`), K5's 4 x 4 cells x 8 bins
     and at most 16 x 16 samples (K6 reads its 2 x 128-bin output), the odd
-    patch size with 2 P^2 <= 128 of K2, K3, K6 and K7. The wrappers refuse
-    such settings at their launch; the pipeline's step builders call this
-    on CUDA so that they fail at construction. The plain twins (the CPU)
-    take them all."""
+    patch size P <= 11 (2 P^2 <= 242) of K2, K3, K6 and K7, and K1's 19
+    taps (`toed_kernel_size` 17; 18 builds the same taps). The wrappers
+    refuse such settings at their launch; the pipeline's step builders
+    call this on CUDA so that they fail at construction. The plain twins
+    (the CPU) take these settings wherever the reference does; the
+    reference's patch-coverage guard, which holds on both devices, is
+    `patches.check_coverage`."""
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
     from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from edge_based_visual_odometry_tpu_torch.ops import toed as TOED
 
     def refuse(field, why):
         raise ValueError(f"VOConfig.{field} = {getattr(cfg, field)!r}: {why}")
@@ -206,8 +210,12 @@ def check_kernel_ranges(cfg):
     if cfg.desc_patch_samples ** 2 > DESC.MAX_SAMPLES:
         refuse("desc_patch_samples", f"K5 (edge_descriptors) takes at most "
                                      f"{DESC.MAX_SAMPLES} samples")
+    if TOED.tap_width(cfg.toed_kernel_size) != TOED.KERNEL_TAPS:
+        refuse("toed_kernel_size", f"K1 (toed_gradient_field) takes "
+                                   f"{TOED.KERNEL_TAPS} taps "
+                                   f"(toed_kernel_size 17)")
     P = cfg.patch_size
-    side = min(GN.MAX_PATCH_SAMPLES // 2, PAT.MAX_SIDE)
+    side = min(GN.MAX_PATCH_SAMPLES // 2, PAT.MAX_PATCH ** 2)
     if P % 2 == 0 or P * P > side:
         refuse("patch_size", f"K2, K3 (GN), K6 (dense_gates) and K7 "
                              f"(edge_patches) take odd sizes with P*P <= "

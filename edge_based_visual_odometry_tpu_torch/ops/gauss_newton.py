@@ -1,7 +1,7 @@
 """Photometric Gauss-Newton refiners over flat candidate lists.
 
 Port of the batched refiners of `edge_based_visual_odometry_tpu/ops/
-gauss_newton.py`. Both work on mean-centred two-side rotated 7x7 patches
+gauss_newton.py`. Both work on mean-centred two-side rotated P x P patches
 (at +-(P/2 + 1) along the edge normal) with Huber weights:
 
   - `refine_along_epipolar` - 1-DoF shift of the right candidate along the
@@ -38,7 +38,8 @@ from edge_based_visual_odometry_tpu_torch.ops import tiled_sampling as TS
 
 LEFT_TILE = 32     # the reference samples left/KF patches from a 32/8 atlas
 LEFT_STRIDE = 8
-MAX_PATCH_SAMPLES = 128   # K2 and K3 hold a lane's 2 P^2 samples in a warp
+MAX_PATCH_SAMPLES = 242   # K2 and K3 hold a lane's 2 P^2 samples in a warp
+                          # (P <= 11: 8 samples a thread)
 
 
 class RefineResult(NamedTuple):
@@ -61,15 +62,22 @@ def _two_side_coords(cx, cy, theta, nx, ny, side, patch_size):
 
 
 def _lane_sum(v):
-    """Row sums of (B, n <= 128) in the CUDA kernel's order: sample s sits
-    on lane s % 32, each lane adds its samples in order, then a butterfly
-    over the 32 lanes. Keeps the plain twin bit-comparable to the kernel."""
+    """Row sums of (B, n <= 256) in the CUDA kernels' order: sample s sits
+    on lane s % 32, slot s // 32 of NS = max(4, ceil(n / 32)) slots; each
+    lane adds its slots in order (0 past n), then a butterfly over the 32
+    lanes. Keeps the plain twins bit-comparable to the kernels."""
     B, n = v.shape
-    s = F.pad(v, (0, 128 - n)).reshape(B, 4, 32)
-    s = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+    if n > 256:
+        raise ValueError(f"_lane_sum: {n} samples a row, the kernels take "
+                         f"at most 256")
+    ns = max(4, -(-n // 32))
+    s = F.pad(v, (0, 32 * ns - n)).reshape(B, ns, 32)
+    acc = s[:, 0]
+    for k in range(1, ns):
+        acc = acc + s[:, k]
     for o in (16, 8, 4, 2, 1):
-        s = s[:, :o] + s[:, o:2 * o]
-    return s[:, 0]
+        acc = acc[:, :o] + acc[:, o:2 * o]
+    return acc[:, 0]
 
 
 def _centered_halves(v, pp):
@@ -505,20 +513,33 @@ def refine_2dof_sides_cuda(kf_imgs, maps4, kpack, cpack, active,
     return [RefineResult(*(t[k] for t in out[:5])) for k in range(S)], out[5]
 
 
+K3_PATCH_SIZES = (1, 3, 5, 7, 9, 11)     # K3's instances (csrc/gn_2dof.cu)
+
+
 def k3_info():
     """What the built K3 is on this card: warps per block, and for its
     direct (phase 1) and queue (phase 2) kernels the registers a thread,
     local (spill) bytes a thread and blocks an SM holds
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
-    buf = (ctypes.c_int * 7)()
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`): at patch size 7 as
+    the top-level keys, and at every patch size K3 takes under
+    `by_patch_size` {P: {...}}."""
+    buf = (ctypes.c_int * (1 + 7 * len(K3_PATCH_SIZES)))()
     CB.check(CB.lib().refine_2dof_info(ctypes.addressof(buf)),
              "refine_2dof_info")
     w = buf[0]
-    return dict(warps_per_block=w, **{
-        f"{k}_{f}": buf[1 + 3 * j + n] for j, k in enumerate(("direct",
-                                                              "queue"))
-        for n, f in enumerate(("registers", "local_bytes", "blocks_per_sm"))},
-        direct_warps_per_sm=w * buf[3], queue_warps_per_sm=w * buf[6])
+    by_p = {}
+    for j, P_ in enumerate(K3_PATCH_SIZES):
+        v = buf[1 + 7 * j:8 + 7 * j]
+        if v[0] != P_:
+            raise RuntimeError(f"refine_2dof_info: patch size {v[0]} where "
+                               f"{P_} was expected")
+        by_p[P_] = dict(warps_per_block=w, **{
+            f"{k}_{f}": v[1 + 3 * i + n]
+            for i, k in enumerate(("direct", "queue"))
+            for n, f in enumerate(("registers", "local_bytes",
+                                   "blocks_per_sm"))},
+            direct_warps_per_sm=w * v[3], queue_warps_per_sm=w * v[6])
+    return dict(by_p[7], by_patch_size=by_p)
 
 
 def refine_2dof_batch(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta,

@@ -25,10 +25,11 @@ CUDA tensor to the kernel and a CPU tensor to its plain twin:
     launches.
 The twins do their float arithmetic in the kernels' order, so each
 agrees with its kernel bit for bit on the card:
-  - a sum over one side of a patch (P*P <= 64 samples): sample s on lane
-    s % 32, each lane adds its two samples (0 past the side), then a
-    butterfly over the 32 lanes (`_lane_sum`); the mean is that sum times
-    the float32 reciprocal of P*P;
+  - a sum over one side of a patch (P*P <= 128 samples): sample s on
+    lane s % 32, slot s // 32 of 2 slots (P*P <= 64) or 4; each lane adds
+    its slots in order (0 past the side), then a butterfly over the 32
+    lanes (`_lane_sum`); the mean is that sum times the float32
+    reciprocal of P*P;
   - a dot over one 128-bin half of a descriptor: bin k on lane k // 8 of
     16, each lane adds its 8 products in order, then a butterfly over the
     16 lanes (`_half_dot`).
@@ -47,7 +48,8 @@ import torch.nn.functional as F
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import tiled_sampling as TS
 
-MAX_SIDE = 64        # K6, K7: a patch side's P*P samples on 2 lanes of 32
+MAX_SIDE = 128       # K6, K7: a patch side's P*P samples, <= 4 a lane of 32
+MAX_PATCH = 11       # K2, K3, K6, K7: odd patch sizes up to 11 (2 P^2 <= 242)
 K6_DESC = 256        # K6: two 128-bin bf16 halves, K5's output
 MAX_SLOTS = 64       # K6: a row's live slots as one 64-bit mask
 NCC_EPS = 1e-10      # K6: a side is degenerate below this sum of squares
@@ -202,9 +204,24 @@ def edge_patches_plain(img, x, y, theta, patch_size: int, shift_mag: float,
 
 
 def _check_patch_size(what, patch_size):
-    if patch_size % 2 == 0 or patch_size * patch_size > MAX_SIDE:
+    if patch_size % 2 == 0 or not 0 < patch_size <= MAX_PATCH:
         raise ValueError(f"{what}: patch size {patch_size}, the kernel takes "
-                         f"odd sizes with P*P <= {MAX_SIDE}")
+                         f"odd sizes up to {MAX_PATCH}")
+
+
+def check_coverage(patch_size: int, shift_mag: float, tile: int = 32,
+                   stride: int = 8, what: str = "edge_patches"):
+    """The reference's static coverage guard (`edge_patches_tiled`): every
+    sample of the two side patches must fit the nearest atlas tile, which
+    reaches +-(tile / 2 - stride / 2 - 1) from the edge; the patches need
+    shift_mag + (P // 2) * 1.4143 + 1. Raises ValueError, with the
+    reference's numbers, where they do not fit (P = 9 needs a shift <=
+    4.34, P = 11 <= 2.93 at tile 32, stride 8)."""
+    need = shift_mag + (patch_size // 2) * 1.4143 + 1.0
+    covers = tile / 2 - stride / 2 - 1
+    if covers < need:
+        raise ValueError(f"{what}: atlas tile {tile}/stride {stride} covers "
+                         f"+-{covers}, patches need +-{need:.1f}")
 
 
 def _patch_outputs(B: int, patch_size: int, dev):
@@ -219,8 +236,8 @@ def edge_patches_cuda(img, x, y, theta, patch_size: int, shift_mag: float,
                       tile: int = 32, stride: int = 8, live=None):
     """The hand-written kernel (csrc/edge_patches.cu, K7): same contract as
     `edge_patches_plain`, for a contiguous float32 (H, W) image and (B,)
-    edges on the card, an odd P with P*P <= 64 and a power-of-two atlas
-    stride; one launch. With `live`, a (B,) bool mask on the card, only
+    edges on the card, an odd P <= 11 and a power-of-two atlas stride;
+    one launch. With `live`, a (B,) bool mask on the card, only
     the live edges are sampled and written: a dead edge's patch row and
     ok flags are unspecified (whatever the new buffers held)."""
     dev = x.device
@@ -278,7 +295,9 @@ def edge_patches_flat(img, x, y, theta, patch_size: int, shift_mag: float,
     minus], ok (B, 2)). K7 for CUDA tensors, the plain twin (in chunks of
     `chunk` edges) for CPU tensors. `live`, a (B,) bool mask, lets K7
     skip the dead edges, whose rows are then unspecified (the twin
-    computes every row)."""
+    computes every row). On both devices a patch that does not fit the
+    atlas tile raises (`check_coverage`), as in the reference."""
+    check_coverage(patch_size, shift_mag, tile, stride)
     if x.is_cuda:
         return edge_patches_cuda(img, x, y, theta, patch_size, shift_mag,
                                  tile, stride, live)
@@ -330,12 +349,26 @@ def _recip(n: int) -> float:
     return float(np.float32(1.0) / np.float32(n))
 
 
+def _lane_leaves(v):
+    """The 32 lane partials of sums over the last axis (n <= 128) in K6's
+    order: sample s on lane s % 32, slot s // 32 of 2 slots (n <= 64) or
+    4; each lane adds its slots in order, 0 past n."""
+    n = v.shape[-1]
+    if n > MAX_SIDE:
+        raise ValueError(f"_lane_leaves: {n} samples a side, K6 takes at "
+                         f"most {MAX_SIDE}")
+    ns = 2 if n <= 64 else 4
+    s = F.pad(v, (0, 32 * ns - n)).reshape(*v.shape[:-1], ns, 32)
+    acc = s[..., 0, :]
+    for k in range(1, ns):
+        acc = acc + s[..., k, :]
+    return acc
+
+
 def _lane_sum(v):
-    """Sums over the last axis (n <= 64) in K6's order: sample s on lane
-    s % 32, each lane adds its two samples (0 past n), then a butterfly
-    over the 32 lanes."""
-    s = F.pad(v, (0, MAX_SIDE - v.shape[-1])).reshape(*v.shape[:-1], 2, 32)
-    s = s[..., 0, :] + s[..., 1, :]
+    """Sums over the last axis (n <= 128) in K6's order: each lane's
+    partial (`_lane_leaves`), then a butterfly over the 32 lanes."""
+    s = _lane_leaves(v)
     for o in (16, 8, 4, 2, 1):
         s = s[..., :o] + s[..., o:2 * o]
     return s[..., 0]
@@ -639,19 +672,23 @@ def k6_info():
     """What the built K6 is on this card, per kernel of `K6_KERNELS`: warps
     a block, registers a thread, local (spill) bytes a thread, static
     shared bytes a block, blocks and warps an SM
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`); and the live slots
-    the gates take a warp step."""
-    buf = (ctypes.c_int * 26)()
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), for the instances
+    of 2 samples a lane (P <= 7) as the top-level keys and of 4 (P = 9,
+    11) under "wide"; and the live slots the gates take a warp step."""
+    buf = (ctypes.c_int * 51)()
     CB.check(CB.lib().dense_gates_info(ctypes.addressof(buf)),
              "dense_gates_info")
-    out = {}
-    for k, name in enumerate(K6_KERNELS):
-        v = buf[5 * k:5 * k + 5]
-        out[name] = dict(warps_per_block=v[0], registers=v[1],
-                         local_bytes=v[2], shared_bytes=v[3],
-                         blocks_per_sm=v[4], warps_per_sm=v[0] * v[4])
-    out["slots_a_step"] = buf[25]
-    return out
+
+    def kernels(base):
+        out = {}
+        for k, name in enumerate(K6_KERNELS):
+            v = buf[base + 5 * k:base + 5 * k + 5]
+            out[name] = dict(warps_per_block=v[0], registers=v[1],
+                             local_bytes=v[2], shared_bytes=v[3],
+                             blocks_per_sm=v[4], warps_per_sm=v[0] * v[4])
+        return out
+
+    return dict(kernels(0), slots_a_step=buf[25], wide=kernels(26))
 
 
 def _dispatch(name, cmask, kernel, twin, *args, **kw):

@@ -29,7 +29,8 @@ from edge_based_visual_odometry_tpu_torch.ops import filters
 __all__ = ["EdgeList", "toed_gradient_field", "toed_gradient_field_plain",
            "toed_nms_subpixel", "extract_edges", "detect_edges"]
 
-HALO = 9
+HALO = 9                     # the CUDA kernel's taps: 2 HALO + 1 = 19
+KERNEL_TAPS = 2 * HALO + 1
 # The column channel feeding each of the 36 outputs, as the CUDA kernel
 # fixes it (`phase_base(ph) + deriv_ychan(k)` in csrc/toed_gradient_field.cu):
 # per phase the y-filter block (8, 0, 4, 4), per derivative its y-filter.
@@ -38,12 +39,15 @@ KERNEL_ROW_SELECT = np.array(
     dtype=np.int32)
 
 
+def tap_width(kernel_size: int) -> int:
+    """The width of the separable taps `filters.toed_separable_taps`
+    builds for `kernel_size`: 2 ((kernel_size - 1) // 2 + 1) + 1."""
+    return 2 * ((kernel_size - 1) // 2 + 1) + 1
+
+
 def _taps(kernel_size: int, sigma: float):
-    col, sel, row = filters.toed_separable_taps(kernel_size, sigma)
-    if col.shape[1] != 2 * HALO + 1:
-        raise ValueError(f"TOED taps of width {col.shape[1]}; the kernel "
-                         f"takes {2 * HALO + 1}")
-    return col, sel, row
+    """The filter bank's (col, row_select, row) taps, of any width."""
+    return filters.toed_separable_taps(kernel_size, sigma)
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +57,9 @@ def _kernel_taps(kernel_size: int, sigma: float) -> np.ndarray:
     them by value in its launch parameters (its constant bank), so no
     launch copies host memory to the device."""
     col, sel, row = _taps(kernel_size, sigma)
+    if col.shape[1] != KERNEL_TAPS:
+        raise ValueError(f"TOED taps of width {col.shape[1]}; the kernel "
+                         f"takes {KERNEL_TAPS}")
     if not np.array_equal(sel, KERNEL_ROW_SELECT):
         raise ValueError("TOED row_select differs from the channel layout "
                          "the CUDA kernel fixes")
@@ -72,17 +79,20 @@ def toed_gradient_field_plain(img: torch.Tensor, kernel_size: int = 17,
                               sigma: float = 2.0):
     """Plain-PyTorch twin of the CUDA kernel. img: (H, W) or (B, H, W),
     values in [0, 255]. Returns (Ix, Iy, grad_mag, orient), each
-    (..., 2H, 2W) float32; zero padding outside the image."""
+    (..., 2H, 2W) float32; zero padding outside the image. Takes every
+    `kernel_size` the filter bank builds taps for (the kernel: 19 taps,
+    `kernel_size` 17)."""
     squeeze = img.dim() == 2
     x = (img[None] if squeeze else img).to(torch.float32)
     B, H, W = x.shape
     col, sel, row = _taps(kernel_size, sigma)
+    halo = (col.shape[1] - 1) // 2
     dev = x.device
-    col_t = torch.as_tensor(col, device=dev)[:, None, :, None]   # (12,1,19,1)
-    row_t = torch.as_tensor(row, device=dev)[:, None, None, :]   # (36,1,1,19)
-    cols = F.conv2d(x[:, None], col_t, padding=(HALO, 0))        # (B,12,H,W)
+    col_t = torch.as_tensor(col, device=dev)[:, None, :, None]   # (12,1,K,1)
+    row_t = torch.as_tensor(row, device=dev)[:, None, None, :]   # (36,1,1,K)
+    cols = F.conv2d(x[:, None], col_t, padding=(halo, 0))        # (B,12,H,W)
     src = cols[:, torch.as_tensor(sel.astype(np.int64), device=dev)]
-    d = F.conv2d(src, row_t, padding=(0, HALO), groups=36)       # (B,36,H,W)
+    d = F.conv2d(src, row_t, padding=(0, halo), groups=36)       # (B,36,H,W)
     d = d.reshape(B, 4, 9, H, W)
     fx, fy = d[:, :, 0], d[:, :, 1]
     fxx, fxy, fyy = d[:, :, 2], d[:, :, 3], d[:, :, 4]

@@ -47,11 +47,12 @@ KINDS = ("stereo", "flat", "temporal")
 SLOTS = "constexpr int kSlots = 8;"
 TEMPORAL = "__launch_bounds__(kWarps * 32, 3)\ndense_gates_temporal_kernel"
 STEREO = "__launch_bounds__(kWarps * 32)\ndense_gates_stereo_kernel"
-PREP_T = "    prep(cp, cf_desc, Mc, 2, g, cf_terms, stream);"
-PREP_S = "    prep(r_pat, r_desc, Nr, 1, g, r_terms, stream);"
-GATES_T = ("  dense_gates_temporal_kernel<<<blocks(M), kWarps * 32, 0, "
+PREP_T = ("    prep<__nv_bfloat16, L>(p.cf_pat, cf_desc, Mc, 2, p.g, "
+          "cf_terms, stream);")
+PREP_S = "    prep<float, L>(r_pat, r_desc, Nr, 1, p.g, r_terms, stream);"
+GATES_T = ("  dense_gates_temporal_kernel<L><<<blocks(p.M), kWarps * 32, 0, "
            "stream>>>(p);")
-GATES_S = ("  dense_gates_stereo_kernel<<<blocks(N), kWarps * 32, 0, "
+GATES_S = ("  dense_gates_stereo_kernel<L><<<blocks(p.N), kWarps * 32, 0, "
            "stream>>>(p);")
 # the stereo entry's walk, and the two walks it replaced: the distances,
 # then a list of the slots past the SIFT gate, then their NCC
@@ -91,8 +92,8 @@ FULL = ("  for (int o = 8; o > 0; o >>= 1) v = add(v, __shfl_xor_sync(kFull, "
 HALF = ("  for (int o = 8; o > 0; o >>= 1)\n    v = add(v, __shfl_xor_sync("
         "(threadIdx.x & 16) ? 0xffff0000u : 0x0000ffffu, v, o));")
 BOTH = """  const Desc d = load_desc(p.l_desc + (size_t)i * 32, h);
-  const Patch l = load_patch(p.l_pat + (size_t)i * two,
-                             p.l_ok + 2 * (size_t)i, p.g, h);
+  const Patch<S> l = load_patch<S>(p.l_pat + (size_t)i * two,
+                                   p.l_ok + 2 * (size_t)i, p.g, h);
   if (lane < 16) {
     keep_desc(s_desc[w], d, h);
     keep_patch(s_pat[w], l, h);
@@ -100,8 +101,8 @@ BOTH = """  const Desc d = load_desc(p.l_desc + (size_t)i * 32, h);
 SPLIT = """  if (lane < 16) {
     keep_desc(s_desc[w], load_desc(p.l_desc + (size_t)i * 32, h), h);
   } else {
-    keep_patch(s_pat[w], load_patch(p.l_pat + (size_t)i * two,
-                                     p.l_ok + 2 * (size_t)i, p.g, h), h);
+    keep_patch(s_pat[w], load_patch<S>(p.l_pat + (size_t)i * two,
+                                        p.l_ok + 2 * (size_t)i, p.g, h), h);
   }"""
 # Programmatic dependent launch: the gates launched while the prep pass
 # runs, each warp waiting for the prep's terms only before its walk
@@ -129,8 +130,9 @@ def pdl_launch(kernel, grid):
 PDL = [(PREP_TOP, '  asm volatile("griddepcontrol.launch_dependents;");\n'
         + PREP_TOP),
        (WALK_S, WAIT + WALK_S), (WALK_T, WAIT + WALK_T),
-       (GATES_S, pdl_launch("dense_gates_stereo_kernel", "blocks(N)")),
-       (GATES_T, pdl_launch("dense_gates_temporal_kernel", "blocks(M)"))]
+       (GATES_S, pdl_launch("dense_gates_stereo_kernel<L>", "blocks(p.N)")),
+       (GATES_T, pdl_launch("dense_gates_temporal_kernel<L>",
+                            "blocks(p.M)"))]
 # name -> source patches [(text, replacement)], each text replaced
 # wherever it stands (it must stand somewhere)
 VARIANTS = {

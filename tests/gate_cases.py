@@ -14,6 +14,8 @@ own copy, so that both gates pass on some slots and fail on others.
 of two stereo cases against their right tables as the CF mates, CF
 patches still float32 (the caller rounds them to bf16).
 `patch_case(name, B)` returns an image (H, W) and edges x, y, theta (B,).
+The gate cases take another `patch_size` (P = 7 by default: the JAX
+fixture's); at P = 7 their draws are the same.
 """
 
 import numpy as np
@@ -45,9 +47,10 @@ def _slots(name):
     return {"wide_33": 33, "wide_64": 64}.get(name, 32)
 
 
-def stereo_case(name, seed=0):
+def stereo_case(name, seed=0, patch_size=P):
     g = np.random.default_rng(seed)
     N, Nr, C = N_ROWS, N_RIGHT, _slots(name)
+    PP = patch_size * patch_size
     l_desc = g.random((N, 256)) * 120.0
     r_desc = g.random((Nr, 256)) * 120.0
     r_desc[:N] = np.maximum(l_desc + g.normal(0, 6.0, (N, 256)), 0.0)
@@ -116,10 +119,10 @@ def copies(seed=0):
     return s
 
 
-def flat_case(name, seed=0):
+def flat_case(name, seed=0, patch_size=P):
     """The stereo case's (row, slot) pairs as stage 11's flat list: rows
     (N C,), the candidates' patches (N C, 2 P^2) and flags, live = cmask."""
-    s = stereo_case(name, seed)
+    s = stereo_case(name, seed, patch_size)
     N, C = s["cmask"].shape
     j = s["cand"].reshape(-1)
     return dict(l_pat=s["l_pat"], l_ok=s["l_ok"],
@@ -128,8 +131,8 @@ def flat_case(name, seed=0):
                 live=s["cmask"].reshape(-1))
 
 
-def temporal_case(name, seed=0):
-    a, b = stereo_case(name, seed), stereo_case(name, seed + 1)
+def temporal_case(name, seed=0, patch_size=P):
+    a, b = (stereo_case(name, seed + k, patch_size) for k in (0, 1))
     return dict(kf_pat_l=a["l_pat"], kf_ok_l=a["l_ok"],
                 kf_pat_r=b["l_pat"], kf_ok_r=b["l_ok"],
                 kf_desc_l=a["l_desc"], kf_desc_r=b["l_desc"],

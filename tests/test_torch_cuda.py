@@ -153,12 +153,14 @@ def _border_lanes(rng, B, H, W):
     return [f32(a) for a in (lx, ly, lt, rx, ry, epi)]
 
 
-@pytest.mark.parametrize("patch_size", [7, 5])
+@pytest.mark.parametrize("patch_size", [7, 5, 3, 9, 11])
 @pytest.mark.parametrize("tile", [32, 48])
 def test_gn_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
     """The kernel against the twin, bit for bit, at 301 lanes (not a
     multiple of the warps per block), on candidates clamped at every
-    border; with the interleaved maps made by the launch and passed in."""
+    border; with the interleaved maps made by the launch and passed in;
+    at every odd patch size up to 11 but 1 (6 and 8 samples a thread at
+    P = 9 and 11)."""
     left, right, _ = frame
     lf = torch.from_numpy(left.astype(np.float32))
     rf = torch.from_numpy(right.astype(np.float32))
@@ -250,12 +252,12 @@ def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
                                    equal_nan=True)
 
 
-@pytest.mark.parametrize("patch_size", [7, 5])
+@pytest.mark.parametrize("patch_size", [7, 5, 3, 9, 11])
 @pytest.mark.parametrize("tile", [32, 48])
 def test_2dof_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
     """K3 against its twin, bit for bit, at 301 lanes on candidates clamped
     at every border, from an explicit d0 over iterations [0, 2), [2, 20)
-    and [0, 20)."""
+    and [0, 20); at every odd patch size up to 11 but 1."""
     left, right, _ = frame
     lf = torch.from_numpy(left.astype(np.float32))
     rf = torch.from_numpy(right.astype(np.float32))
@@ -669,17 +671,17 @@ TEMPORAL_ROWS = ("kf_pat_l", "kf_ok_l", "kf_pat_r", "kf_ok_r", "kf_desc_l",
                  "kf_desc_r", "cf_idx", "cmask")
 
 
-def _gates_same(dev, name, n, seed):
+def _gates_same(dev, name, n, seed, patch_size=GC.P):
     """K6's three entries against their twins run on the card at n rows
-    (n C flat pairs) of the case."""
-    s = C.gate_tensors(_rows(GC.stereo_case(name), n, seed, STEREO_ROWS),
-                       dev)
-    a, kw = C.k6_args("stereo", s)
+    (n C flat pairs) of the case made at `patch_size`."""
+    s = C.gate_tensors(_rows(GC.stereo_case(name, patch_size=patch_size), n,
+                             seed, STEREO_ROWS), dev)
+    a, kw = C.k6_args("stereo", s, patch_size)
     k, p = (PAT.dense_gates_stereo_cuda(*a, **kw),
             PAT.dense_gates_stereo_plain(*a, **kw))
-    t = C.gate_tensors(_rows(GC.temporal_case(name), n, seed,
-                             TEMPORAL_ROWS), dev)
-    a, kw = C.k6_args("temporal", t)
+    t = C.gate_tensors(_rows(GC.temporal_case(name, patch_size=patch_size),
+                             n, seed, TEMPORAL_ROWS), dev)
+    a, kw = C.k6_args("temporal", t, patch_size)
     kt, pt = (PAT.dense_gates_temporal_cuda(*a, **kw),
               PAT.dense_gates_temporal_plain(*a, **kw))
     slots = s["cmask"].shape[1]
@@ -688,7 +690,7 @@ def _gates_same(dev, name, n, seed):
              rows=torch.arange(n, device=dev).repeat_interleave(slots),
              r_pat=s["r_pat"][j], r_ok=s["r_ok"][j],
              live=s["cmask"].reshape(-1))
-    a, kw = C.k6_args("flat", f)
+    a, kw = C.k6_args("flat", f, patch_size)
     kf, pf = (PAT.dense_gates_flat_cuda(*a, **kw),
               PAT.dense_gates_flat_plain(*a, **kw))
     torch.cuda.synchronize()
@@ -713,6 +715,17 @@ def test_dense_gates_kernel_small_shapes(dev, N, name):
     _gates_same(dev, name, N, seed=N)
 
 
+@pytest.mark.parametrize("name", GC.GATE_CASES)
+@pytest.mark.parametrize("patch_size", [3, 5, 9, 11])
+def test_dense_gates_kernel_other_patch_sizes(dev, patch_size, name):
+    """K6's three entries against their twins at P = 3, 5 (2 samples a
+    lane of a side) and 9, 11 (4 a lane), at 2,048 rows of each case made
+    at that P: every slot bit-equal, the fills kept."""
+    k, kt, kf = _gates_same(dev, name, 2048, seed=patch_size,
+                            patch_size=patch_size)
+    assert k[0].shape == (2048, GC._slots(name))
+
+
 def test_dense_gates_empty_tables_and_rows(dev):
     """K6 where a row has live slots nowhere (every mask False) over an
     empty candidate table: the fills everywhere, and only the gates
@@ -730,13 +743,14 @@ def test_dense_gates_empty_tables_and_rows(dev):
 
 
 def test_dense_gates_and_patches_kernels_do_not_spill(dev):
-    """The built K6 kernels: no local (spill) memory; K6 and K7 at least 16
-    warps an SM. (K7's 32 local bytes are sinf's and cosf's argument
+    """The built K6 kernels, at 2 and at 4 samples a lane of a side: no
+    local (spill) memory; K6 and K7 at least 16 warps an SM. (K7's 32 local bytes are sinf's and cosf's argument
     reduction, as in K2, K3 and K5.)"""
     info = PAT.k6_info()
     for name in PAT.K6_KERNELS:
-        assert info[name]["local_bytes"] == 0, (name, info[name])
-        assert info[name]["warps_per_sm"] >= 16, (name, info[name])
+        for i in (info[name], info["wide"][name]):   # P <= 7; P = 9, 11
+            assert i["local_bytes"] == 0, (name, i)
+            assert i["warps_per_sm"] >= 16, (name, i)
     assert PAT.k7_info()["warps_per_sm"] >= 16
 
 
@@ -777,13 +791,14 @@ def _patch_args(name, B, dev, seed=0, patch_size=GC.P):
 
 @pytest.mark.parametrize("name", GC.PATCH_CASES)
 @pytest.mark.parametrize("B,patch_size", [(4096, 7), (0, 7), (1, 7),
-                                          (1000, 5), (777, 3)])
+                                          (1000, 5), (777, 3), (1000, 9),
+                                          (777, 11)])
 def test_edge_patches_kernel_matches_twin_bit_for_bit(dev, name, B,
                                                       patch_size):
     """K7 against the twin run on the card on each case of
     `tests/gate_cases.py`: patches bit-equal (NaN equal to NaN), ok flags
     equal; also at no edge, one edge and P = 5, 3 (lanes past the
-    samples)."""
+    samples) and 9, 11 (up to 242 samples an edge)."""
     a, kw = _patch_args(name, B, dev, seed=B, patch_size=patch_size)
     k = PAT.edge_patches_cuda(*a, **kw)
     p = PAT.edge_patches_plain(*a, **kw)

@@ -139,6 +139,84 @@ def test_twins_match_the_jax_faithful_forms(name):
           True)
 
 
+def _lane_sum_before_p9(v):
+    """K6's `_lane_sum` as it was while K6 took P*P <= 64 only, frozen:
+    two samples a lane, then the butterfly."""
+    s = F.pad(v, (0, 64 - v.shape[-1])).reshape(*v.shape[:-1], 2, 32)
+    s = s[..., 0, :] + s[..., 1, :]
+    for o in (16, 8, 4, 2, 1):
+        s = s[..., :o] + s[..., o:2 * o]
+    return s[..., 0]
+
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_lane_sum_is_bit_equal_to_its_form_before_p9(n):
+    """At every side it took (n <= 64), `_lane_sum` gives the bits it gave
+    before it took 128 samples a side."""
+    v = torch.from_numpy(np.random.default_rng(n).normal(0, 100, (7, n))
+                         .astype(np.float32))
+    assert torch.equal(P._lane_sum(v), _lane_sum_before_p9(v))
+
+
+@pytest.mark.parametrize("n", [18, 50, 81, 98, 121])
+def test_lane_sum_is_near_the_float64_sum(n):
+    """Four samples a lane past 64 (P = 9: 81, P = 11: 121): every sample
+    added once, within float32 rounding of the float64 sum (n ulps of the
+    sum of magnitudes)."""
+    a = np.random.default_rng(n).normal(0, 100, (9, n)).astype(np.float32)
+    ref = a.astype(np.float64).sum(-1)
+    tol = n * np.finfo(np.float32).eps * np.abs(a).astype(np.float64).sum(-1)
+    got = P._lane_sum(torch.from_numpy(a)).numpy().astype(np.float64)
+    assert np.all(np.abs(got - ref) <= tol), (got - ref, tol)
+    # a lane's 4 slots in order, then the butterfly
+    lanes = torch.zeros(9, 32)
+    for s_ in range(n):
+        lanes[:, s_ % 32] = lanes[:, s_ % 32] + torch.from_numpy(a[:, s_])
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[:, :o] + lanes[:, o:2 * o]
+    assert torch.equal(P._lane_sum(torch.from_numpy(a)), lanes[:, 0])
+
+
+@pytest.mark.parametrize("patch_size", [3, 5, 9, 11])
+def test_ncc4_lanes_matches_jax_at_other_patch_sizes(patch_size):
+    """`ncc4_lanes` (K6's twin) against JAX's `ncc4` on 256 random patch
+    pairs with random ok flags and some constant sides, at the tolerance
+    of the P = 7 cases (1e-5 of max(1, |b|))."""
+    pp = patch_size * patch_size
+    g = np.random.default_rng(100 + patch_size)
+    a = (g.random((256, 2 * pp)) * 255).astype(np.float32)
+    b = (0.7 * a + 30 + g.normal(0, 20, a.shape)).astype(np.float32)
+    b[::3] = (g.random((b[::3].shape)) * 255).astype(np.float32)
+    a[::17, :pp] = 40.0
+    b[5::19, pp:] = 7.0
+    ao, bo = g.random((256, 2)) > 0.2, g.random((256, 2)) > 0.2
+    out = P.ncc4_lanes(*(torch.from_numpy(x) for x in (a, ao, b, bo)),
+                       patch_size).numpy()
+    ref = np.asarray(JP.ncc4(*(jnp.asarray(x) for x in (
+        a[:, :pp], a[:, pp:], ao[:, 0], ao[:, 1], b[:, :pp], b[:, pp:],
+        bo[:, 0], bo[:, 1]))))
+    _near(out, ref, np.ones(out.shape, bool), NCC_TOL, True)
+    assert (ref > 0.5).any() and (ref == -1.0).any()
+
+
+@pytest.mark.parametrize("patch_size", [9, 11])
+@pytest.mark.parametrize("name", ["interior", "degenerate", "nonfinite"])
+def test_k6_pair_model_equals_the_twins_past_p7(name, patch_size):
+    """K6's pair arithmetic at 4 samples a lane (P = 9, 11) and the built
+    8 slots a step (`_k6_pairs`) bit-equal to the twins on every slot of
+    the case made at that P."""
+    t = C.gate_tensors(GC.stereo_case(name, patch_size=patch_size), CPU)
+    j = t["cand"]
+    a_pat, a_ok = t["l_pat"][:, None], t["l_ok"][:, None]
+    gate, dist = _k6_pairs(a_pat, a_ok, t["r_pat"][j], t["r_ok"][j],
+                           t["l_desc"][:, None], t["r_desc"][j], patch_size,
+                           8)
+    _equal(gate, P.ncc4_lanes(a_pat, a_ok, t["r_pat"][j], t["r_ok"][j],
+                              patch_size), "NCC gate")
+    rows = t["l_desc"][:, None].expand(-1, j.shape[1], -1)
+    _equal(dist, P.desc_distance_lanes(rows, t["r_desc"][j]), "distance")
+
+
 @pytest.mark.parametrize("n", [49, 25, 9, 64, 1])
 def test_lane_sum_is_two_samples_a_lane_then_a_butterfly(n):
     v = torch.from_numpy(np.random.default_rng(n).normal(0, 100, (5, n))
@@ -199,10 +277,9 @@ def _slot_sums(leaves, lanes, stack=False):
 
 
 def _side_leaves(v):
-    """A side sum's 32 leaves: lane l's two samples l and l + 32, 0 past
-    the side."""
-    s = F.pad(v, (0, P.MAX_SIDE - v.shape[-1]))
-    return s[..., :32] + s[..., 32:]
+    """A side sum's 32 leaves: lane l's samples l + 32 j in order (2 slots
+    up to 64 samples, 4 up to 128), 0 past the side."""
+    return P._lane_leaves(v)
 
 
 def _chunk_leaves(a, b):

@@ -13,12 +13,15 @@ is exact to ~0.003 gray):
 
 Tolerances (cf. tests/test_toed_pallas.py): delta atol 2e-3, score atol
 1e-2, `valid` agreement >= 0.98 - f32 sums in another order and the
-reference's bf16 split sampling.
+reference's bf16 split sampling. The JAX comparisons run at P = 5, 7, 9
+and 11 (2 P^2 up to 242 samples a lane, 8 a thread of the kernels) with
+the P = 7 tolerances; past 7 at the larger phase-2 budget only.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 import jax.numpy as jnp
 
 from edge_based_visual_odometry_tpu.io import synthetic as JS
@@ -79,11 +82,21 @@ def _assert_close(out, ref, act):
                                np.asarray(ref.score)[act], atol=1e-2)
 
 
-@pytest.mark.parametrize("budget", [16, 16384])
-def test_epipolar_two_phase_matches_jax(problem, budget):
+# (patch size, phase-2 budget) of the JAX comparisons; the P = 7 cases
+# keep the ids they had before the other sizes were added
+PATCH_BUDGETS = [pytest.param(7, 16, id="16"),
+                 pytest.param(7, 16384, id="16384"),
+                 pytest.param(5, 16, id="P5-16"),
+                 pytest.param(5, 16384, id="P5-16384"),
+                 pytest.param(9, 16384, id="P9-16384"),
+                 pytest.param(11, 16384, id="P11-16384")]
+
+
+@pytest.mark.parametrize("patch_size,budget", PATCH_BUDGETS)
+def test_epipolar_two_phase_matches_jax(problem, patch_size, budget):
     p = problem
-    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=1.0, tile=32,
-              chunk=8, phase1_iters=2, phase2_budget=budget)
+    kw = dict(patch_size=patch_size, max_iter=20, tol=1e-3, huber_delta=1.0,
+              tile=32, chunk=8, phase1_iters=2, phase2_budget=budget)
     ref = JGN.refine_along_epipolar_batch(
         *_jax_args(p), active=jnp.asarray(p["act"]), weight_split=True,
         phase1_chunk=64, **kw)
@@ -95,9 +108,10 @@ def test_epipolar_two_phase_matches_jax(problem, budget):
     _assert_close(out, ref, p["act"])
 
 
-def test_epipolar_matches_pallas_interpret(problem):
+@pytest.mark.parametrize("patch_size", [5, 7, 9, 11])
+def test_epipolar_matches_pallas_interpret(problem, patch_size):
     p = problem
-    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=1.0)
+    kw = dict(patch_size=patch_size, max_iter=20, tol=1e-3, huber_delta=1.0)
     ref = JGNP.refine_along_epipolar_pallas(
         *_jax_args(p), tile=48, block_b=8, active=jnp.asarray(p["act"]),
         interpret=True, **kw)
@@ -131,15 +145,20 @@ def test_two_phase_within_budget_equals_single_phase(problem, refiner):
         torch.testing.assert_close(a[act], b[act], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("budget", [16, 16384])
-def test_2dof_matches_jax(problem, budget):
+# At P = 5 and budget 16384, 131 of the 192 lanes still oscillate at
+# iteration 20, in JAX and in the port alike (equal iteration counts), so
+# fewer than half settle and the settled-lane comparison has too few
+# lanes; at budget 16, 180 settle in both.
+@pytest.mark.parametrize("patch_size,budget", [
+    b for b in PATCH_BUDGETS if b.id != "P5-16384"])
+def test_2dof_matches_jax(problem, patch_size, budget):
     """KF = left image, CF = right image: the 2-DoF refiner moves each
     candidate onto its KF edge's match."""
     p = problem
     left, right, gx, gy = p["imgs"]
     ct = p["lt"]
-    kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32,
-              chunk=8, phase1_iters=2, phase2_budget=budget)
+    kw = dict(patch_size=patch_size, max_iter=20, tol=1e-3, huber_delta=3.0,
+              tile=32, chunk=8, phase1_iters=2, phase2_budget=budget)
     jargs = [jnp.asarray(a) for a in (left, right, gx, gy, p["lx"], p["ly"],
                                       p["lt"], p["rx"], p["ry"], ct)]
     ref = JGN.refine_2dof_batch(*jargs, active=jnp.asarray(p["act"]),
@@ -329,3 +348,42 @@ def test_cpu_tensors_take_the_twin_and_kernel_wrapper_refuses_them(
         GN.refine_2dof_sides_cuda(
             [args[0]], GN.interleave_maps(*args[1:4])[None],
             torch.stack(args[4:7], -1), torch.stack(args[7:10], -1), act)
+
+
+def _lane_sum_before_p9(v):
+    """The GN twins' `_lane_sum` as it was while K2 and K3 took 2 P^2 <=
+    128 only, frozen: 4 slots a lane, then the butterfly."""
+    B, n = v.shape
+    s = F.pad(v, (0, 128 - n)).reshape(B, 4, 32)
+    s = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+    for o in (16, 8, 4, 2, 1):
+        s = s[:, :o] + s[:, o:2 * o]
+    return s[:, 0]
+
+
+@pytest.mark.parametrize("n", range(1, 129))
+def test_lane_sum_is_bit_equal_to_its_form_before_p9(n):
+    """At every row length it took (n <= 128), `_lane_sum` gives the bits
+    it gave before it took 256 samples a row."""
+    v = torch.from_numpy(np.random.default_rng(n).normal(0, 100, (7, n))
+                         .astype(np.float32))
+    assert torch.equal(GN._lane_sum(v), _lane_sum_before_p9(v))
+
+
+@pytest.mark.parametrize("n", [18, 50, 81, 98, 121, 162, 242])
+def test_lane_sum_is_near_the_float64_sum(n):
+    """Past 128 samples (P = 9: 162, P = 11: 242) a lane adds 6 or 8 slots:
+    every sample added once, within float32 rounding of the float64 sum
+    (n ulps of the sum of magnitudes), in the kernels' order (a lane's
+    slots in order, then the butterfly)."""
+    a = np.random.default_rng(n).normal(0, 100, (9, n)).astype(np.float32)
+    ref = a.astype(np.float64).sum(-1)
+    tol = n * np.finfo(np.float32).eps * np.abs(a).astype(np.float64).sum(-1)
+    got = GN._lane_sum(torch.from_numpy(a))
+    assert np.all(np.abs(got.numpy().astype(np.float64) - ref) <= tol)
+    lanes = torch.zeros(9, 32)
+    for s_ in range(n):
+        lanes[:, s_ % 32] = lanes[:, s_ % 32] + torch.from_numpy(a[:, s_])
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[:, :o] + lanes[:, o:2 * o]
+    assert torch.equal(got, lanes[:, 0])

@@ -43,6 +43,17 @@ def test_field_plain_matches_xla(img):
                         JT.toed_gradient_field(jnp.asarray(img)))
 
 
+@pytest.mark.parametrize("kernel_size", [13, 21])
+def test_field_plain_takes_other_kernel_sizes(img, kernel_size):
+    """The twin at the kernel sizes the filter bank builds other tap widths
+    for (15 and 23 taps; the CUDA kernel takes 19, kernel size 17),
+    against the XLA formulation at the tolerances of the 17 case."""
+    out = T.toed_gradient_field_plain(torch.from_numpy(img), kernel_size)
+    _assert_field_close([o.numpy() for o in out],
+                        JT.toed_gradient_field(jnp.asarray(img),
+                                               kernel_size=kernel_size))
+
+
 def test_field_plain_matches_pallas_interpret(img):
     out = T.toed_gradient_field_plain(torch.from_numpy(img))
     ref = JTP.toed_gradient_field_pallas(jnp.asarray(img), block_h=32,

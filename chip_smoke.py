@@ -76,6 +76,21 @@ Phases (each passes or exits non-zero):
      instances each size runs; the P = 9 frames held to the production
      guards (a successful, finite pose with >= 500 quads on frames 1-2)
      and to the default frame's launches of K2, K3, K6 and K7;
+ 6h. K8 (RANSAC hypothesis scoring) and K9 (the pose GN step's normal
+     equations) vs their plain twins run on the card, bit for bit, on the
+     operands of frame 2's two `ransac_counts` calls (the prescore and
+     the full count) and four `pose_gn_normal_equations` calls; each
+     timed with its wrapper and launched alone, beside its bound (and its
+     FMA-free bound) and the twin; frame 2's `estimate_pose` on the
+     kernels against the same on the twins (R, t, inliers identical),
+     both timed, with no wait for the card in the call (PyTorch's sync
+     debug warnings) and its 4 refinement steps run with the sync check
+     set to raise; the singular case of
+     tests/pose_cases.py
+     through `estimate_pose` on the card (success, 2 inliers, a finite
+     pose, within 1e-4 of the CPU's). Phase 6's temporal split times
+     estimate_pose's stages: the gates and pair poses, the prescore, the
+     sort, the full count, the 4 refinement steps, the final count;
   7. the sequence path at full width: `cli.run` on 6 frames of 376x1241
      (in-memory samples, a config dict), every_frame, windowed BA over 3
      keyframes, dump files on, a checkpoint every 2 frames; then the same
@@ -107,7 +122,8 @@ delta, and the lanes ended by the singular-lane guard are counted; K4 is
 launched once per stereo step and once per temporal step, K5 three times
 per stereo step, K6 three times per stereo step (stages 4-5: the prep
 pass and the gates; stage 11) and twice per temporal step (the prep pass
-and the gates), K7 four times per stereo step.
+and the gates), K7 four times per stereo step, K8 twice and K9 four
+times per temporal step.
 Last, a fourth production frame under `device_trace` (torch.profiler):
 the kernels of a frame, their time on the card, the card's busy share.
 Prints a JSON line of per-kernel results (time, bound, % of bound, and
@@ -123,6 +139,7 @@ FMA peak; their lines also give the bound at that rate (`bound_ms_no_fma`).
 The counting functions below need no GPU (tests/test_torch_bounds.py).
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -266,6 +283,30 @@ K7_SAMPLE_FLOPS = 8 + 16 + 9
 K7_EDGE_FLOPS = 2 + 2 + 4 + 6
 
 
+# K8 (csrc/ransac_score.cu), per pair of a gated hypothesis and a valid
+# quad (compares not counted): K R g + K t (3 rows of 3 multiplies and 3
+# adds), 2 divisions, 2 subtractions, 2 squares, an add and a sqrt. Bytes:
+# per hypothesis counted its K R and K t rows, its gate and its int32
+# count (and its int64 index, where the call passes one); per quad gamma,
+# cf and valid.
+K8_PAIR_FLOPS = 18 + 2 + 2 + 2 + 1 + 1
+K8_HYP_BYTES = 9 * 4 + 3 * 4 + 1 + 4
+K8_INDEX_BYTES = 8
+K8_QUAD_BYTES = 3 * 4 + 2 * 4 + 1
+
+# K9 (csrc/pose_gn.cu), per quad (the depth clamp, compares and selects not
+# counted): R g + t 18, the residual 8 (2 x multiply, divide, add,
+# subtract), its norm 4, 1 / z and its square 2, fx / z and fy / z 2, the
+# two depth terms 6 (negate, 2 multiplies each), the rotation Jacobian 12,
+# the weighted rows 12, H's 21 entries 63, b's 6 entries 18, and one add
+# into each of the 28 sums; then b's 6 negations. Bytes: gamma, cf and
+# valid a quad; R, t, K in and the 28 sums out.
+K9_QUAD_FLOPS = 18 + 8 + 4 + 2 + 2 + 6 + 12 + 12 + 63 + 18 + 28
+K9_STEP_FLOPS = 6
+K9_QUAD_BYTES = 3 * 4 + 2 * 4 + 1
+K9_STEP_BYTES = (9 + 3 + 9 + 28) * 4
+
+
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """Least time in ms for `flops` and `nbytes` on the card, and what
     sets it ("operations" or "bytes")."""
@@ -386,6 +427,21 @@ def k7_work(B, pp, H, W, live=None):
                    + (0 if live is None else B))
 
 
+def k8_work(n_out, n_gated, Q, n_valid, indexed=False):
+    """(flops, bytes) of one K8 call: `n_out` hypotheses counted, of which
+    `n_gated` pass the gate, over Q quads of which `n_valid` are valid."""
+    flops = K8_PAIR_FLOPS * n_gated * n_valid
+    nbytes = (n_out * (K8_HYP_BYTES + (K8_INDEX_BYTES if indexed else 0))
+              + Q * K8_QUAD_BYTES)
+    return flops, nbytes
+
+
+def k9_work(Q):
+    """(flops, bytes) of one K9 call over Q quads."""
+    return (Q * K9_QUAD_FLOPS + K9_STEP_FLOPS,
+            Q * K9_QUAD_BYTES + K9_STEP_BYTES)
+
+
 def gate_errors(a, b, mask, tol, relative=False):
     """Entries of `mask` where a and b (numpy) differ past the CPU tests'
     tolerance against JAX: NaN in one only, or |a - b| > atol + rtol |b|
@@ -461,11 +517,11 @@ def graph_ms(fn, reps):
     return ms
 
 
-def launch_bound(ms, launch_ms, flops, nbytes):
+def launch_bound(ms, launch_ms, flops, nbytes, fma_free=False):
     """`with_bound` for a kernel timed both with its wrapper (`ms`) and
     as launches alone (`launch_ms`): the % of bound is the launches',
     the wrapper's beside it."""
-    b = with_bound(launch_ms, flops, nbytes)
+    b = with_bound(launch_ms, flops, nbytes, fma_free)
     b.update(ms=ms, launch_ms=launch_ms,
              pct_of_bound_with_wrapper=100.0 * b["bound_ms"] / ms)
     return b
@@ -602,8 +658,18 @@ def step_split(stages, label, step, args, reps=3):
     return {n: sum(ts) / reps * 1e3 for n, ts in timer.times.items()}
 
 
+# estimate_pose's stages (models/motion_tracker.py), as temporal_split
+# names them
+POSE_STAGES = (("_hypotheses", "gates and _pose_from_pair"),
+               ("_prescore", "prescore (K8)"), ("_rank", "sort"),
+               ("_full_count", "full count (K8)"),
+               ("_refine_step", "4 refinement steps (K9 + solve_ex)"),
+               ("_final_count", "final count"))
+
+
 def temporal_split(step, args, reps=3):
-    """Per-stage ms of one temporal step (`step_split`)."""
+    """Per-stage ms of one temporal step (`step_split`), estimate_pose's
+    stages (`POSE_STAGES`) among them."""
     from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
     from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
@@ -617,11 +683,14 @@ def temporal_split(step, args, reps=3):
          (CL, "cluster_edges", "cluster_edges"),
          (P, "dense_gates_temporal", "dense NCC + descriptor gates"),
          (MT, "lift_quads", "lift_quads"),
-         (MT, "estimate_pose", "estimate_pose")),
+         (MT, "estimate_pose", "estimate_pose"),
+         *((MT, fn, name) for fn, name in POSE_STAGES)),
         "temporal step", step, args, reps)
     split["rest of match_temporal"] = split["match_temporal"] - sum(
         split[nm] for nm in ("interleave_pair_maps", "refine_2dof_pair_batch",
                              "cluster_edges", "dense NCC + descriptor gates"))
+    split["rest of estimate_pose"] = split["estimate_pose"] - sum(
+        split[nm] for _, nm in POSE_STAGES)
     return split
 
 
@@ -1509,6 +1578,227 @@ def phase_k7(patch_ops, card):
         **step)
 
 
+K8_CALLS = ("prescore", "full count")
+
+
+@contextlib.contextmanager
+def pose_twins():
+    """A context in which `estimate_pose` runs K8's and K9's plain twins
+    on the card (the module attributes it calls, swapped)."""
+    from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
+
+    saved = (POSE.ransac_counts, POSE.pose_gn_normal_equations)
+    POSE.ransac_counts = POSE.ransac_counts_plain
+    POSE.pose_gn_normal_equations = POSE.pose_gn_normal_equations_plain
+    try:
+        yield
+    finally:
+        POSE.ransac_counts, POSE.pose_gn_normal_equations = saved
+
+
+def wall_ms(fn, reps):
+    """Mean host ms of `fn` between two synchronisations, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def sync_count(fn):
+    """How many times `fn` makes the host wait for the card (PyTorch's
+    sync debug warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def singular_on_card(dev):
+    """The singular refinement case (tests/pose_cases.py) through
+    `estimate_pose` on the card and on the CPU with the same draws: fails
+    unless the card returns `success`, 2 inliers and a finite pose within
+    1e-4 of the CPU's. Returns the seeds."""
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.io import synthetic as S
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.models import types as TY
+    from tests import pose_cases as PC
+
+    cfg = VOConfig(**PC.SINGULAR_CFG)
+    draws = np.arange(cfg.ransac_max_iterations) % 2
+    for seed in PC.SINGULAR_SEEDS:
+        res = {}
+        for d in ("cpu", dev):
+            pq = MT.PoseQuads(**{k: torch.as_tensor(np.array(v)).to(d)
+                                 for k, v in PC.singular_quads(seed).items()})
+            res[str(d)] = MT.estimate_pose(
+                pq, TY.rig_arrays_from_rig(S.default_rig(120, 160), d), cfg,
+                idx=(draws, 1 - draws))
+        c, g = res["cpu"], res[str(dev)]
+        check(bool(g.success) and int(g.inlier_count) == 2
+              and bool(torch.isfinite(g.R).all() and torch.isfinite(g.t).all()),
+              f"singular case {seed} on the card: success {bool(g.success)}, "
+              f"{int(g.inlier_count)} inliers, R {g.R.tolist()}")
+        err = max(float((g.R.cpu() - c.R).abs().max()),
+                  float((g.t.cpu() - c.t).abs().max()))
+        check(err <= 1e-4, f"singular case {seed}: card and CPU poses "
+                           f"{err:.3g} apart")
+    return PC.SINGULAR_SEEDS
+
+
+def phase_pose(k8_ops, k9_ops, est_args, card):
+    """Phase 6h: K8 and K9 against their twins run on the card, bit for
+    bit, on the operands of frame 2's two `ransac_counts` calls (the
+    prescore and the full count) and four `pose_gn_normal_equations`
+    calls (the refinement steps), each timed with its wrapper and launched
+    alone beside its bound (`k8_work`, `k9_work`) and the twin; frame 2's
+    `estimate_pose` on the kernels against the same on the twins (R, t
+    and the inlier count identical), both timed, with no wait for the card
+    in the call (`sync_count`) and its refinement steps run with the
+    card's sync check set to raise; the singular case on the card
+    (`singular_on_card`). Returns the kernels' JSON entries, each with the
+    times and bound of a temporal step's calls."""
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
+
+    check(len(k8_ops) == 2, f"K8: {len(k8_ops)} ransac_counts calls "
+                            f"recorded in frame 2's temporal step, not 2")
+    check(len(k9_ops) == 4, f"K9: {len(k9_ops)} pose_gn_normal_equations "
+                            f"calls recorded in frame 2's temporal step, "
+                            f"not 4")
+    calls = {}
+    for name, (a, kw) in zip(K8_CALLS, k8_ops):
+        k = POSE.ransac_counts_cuda(*a, **kw)
+        p = POSE.ransac_counts_plain(*a, **kw)
+        torch.cuda.synchronize()
+        n_bad = int((k != p).sum())
+        check(n_bad == 0, f"K8 {name}: {n_bad} of {k.numel()} counts differ "
+                          f"from the twin")
+        index, gate = kw.get("index"), kw.get("gate")
+        sel = gate if index is None else gate[index]
+        n_valid = int(a[4].sum())
+        work = k8_work(k.numel(), int(sel.sum()), a[2].shape[0], n_valid,
+                       index is not None)
+        row = launch_bound(
+            cuda_ms(lambda: POSE.ransac_counts_cuda(*a, **kw), 20),
+            graph_ms(lambda: POSE.ransac_counts_cuda(*a, **kw), 20),
+            *work, fma_free=True)
+        row.update(plain_ms=cuda_ms(
+            lambda: POSE.ransac_counts_plain(*a, **kw), 3),
+            hypotheses=k.numel(), gated=int(sel.sum()),
+            quads=a[2].shape[0], valid_quads=n_valid,
+            best_count=int(k.max()))
+        calls[name] = row
+        print(f"K8 ransac_score, {name} ({row['hypotheses']} hypotheses, "
+              f"{row['gated']} gated in, {row['quads']} quads, "
+              f"{n_valid} valid; best count {row['best_count']}): counts "
+              f"equal to its twin's on the card; kernel "
+              f"{row['launch_ms']:.4f} ms launched alone, {row['ms']:.4f} ms "
+              f"with its wrapper, twin {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+              f"{row['flops']} flop, {row['bytes']} B), FMA-free "
+              f"{row['bound_ms_no_fma'] * 1e3:.2f} us; "
+              f"{row['pct_of_bound_no_fma']:.1f}% of the FMA-free bound "
+              f"alone [{card}]")
+    k8 = launch_bound(*(sum(r[key] for r in calls.values()) for key in (
+        "ms", "launch_ms", "flops", "bytes")), fma_free=True)
+
+    steps = {}
+    for i, (a, kw) in enumerate(k9_ops):
+        k = POSE.pose_gn_normal_equations_cuda(*a, **kw)
+        p = POSE.pose_gn_normal_equations_plain(*a, **kw)
+        torch.cuda.synchronize()
+        n_bad = f32_differ(k, p)
+        check(n_bad == 0, f"K9 step {i}: {n_bad} of 28 sums not bit-equal "
+                          f"to the twin's")
+        row = launch_bound(
+            cuda_ms(lambda: POSE.pose_gn_normal_equations_cuda(*a, **kw), 20),
+            graph_ms(lambda: POSE.pose_gn_normal_equations_cuda(*a, **kw),
+                     20), *k9_work(a[2].shape[0]), fma_free=True)
+        row.update(plain_ms=cuda_ms(
+            lambda: POSE.pose_gn_normal_equations_plain(*a, **kw), 3),
+            quads=a[2].shape[0], weight=float(k[27]))
+        steps[f"step {i}"] = row
+    k9 = launch_bound(*(sum(r[key] for r in steps.values()) for key in (
+        "ms", "launch_ms", "flops", "bytes")), fma_free=True)
+    print(f"K9 pose_gn, 4 steps over {k9_ops[0][0][2].shape[0]} quads "
+          f"(sum of weights "
+          f"{', '.join(str(int(r['weight'])) for r in steps.values())}): "
+          f"the 28 sums bit-equal to the twin's in every step; "
+          f"{k9['launch_ms']:.4f} ms launched alone, {k9['ms']:.4f} ms with "
+          f"the wrapper, twin "
+          f"{sum(r['plain_ms'] for r in steps.values()):.3f} ms; bound "
+          f"{k9['bound_ms'] * 1e3:.3f} us ({k9['bound_by']}), FMA-free "
+          f"{k9['bound_ms_no_fma'] * 1e3:.3f} us; "
+          f"{k9['pct_of_bound_no_fma']:.2f}% of the FMA-free bound alone "
+          f"[{card}]")
+
+    res_k = MT.estimate_pose(*est_args)
+    with pose_twins():
+        res_p = MT.estimate_pose(*est_args)
+    torch.cuda.synchronize()
+    same = (torch.equal(res_k.R, res_p.R) and torch.equal(res_k.t, res_p.t)
+            and int(res_k.inlier_count) == int(res_p.inlier_count))
+    check(same, f"estimate_pose on K8 / K9 vs on the twins: R "
+                f"{res_k.R.tolist()} / {res_p.R.tolist()}, inliers "
+                f"{int(res_k.inlier_count)} / {int(res_p.inlier_count)}")
+    ms_k = wall_ms(lambda: MT.estimate_pose(*est_args), 5)
+    with pose_twins():
+        ms_p = wall_ms(lambda: MT.estimate_pose(*est_args), 5)
+    probe = torch.zeros(1, device=res_k.R.device)
+    check(sync_count(lambda: probe.item()) >= 1,
+          "sync_count does not see the wait of .item()")
+    n_sync = sync_count(lambda: MT.estimate_pose(*est_args))
+    check(n_sync == 0, f"estimate_pose waited for the card {n_sync} times")
+    # the 4 refinement steps (K9, solve_ex, the update) never wait
+    torch.cuda.synchronize()
+    pq, thr = est_args[0], k9_ops[0][0][6]
+    Rr, tr, K_left = k9_ops[0][0][0], k9_ops[0][0][1], k9_ops[0][0][5]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            Rr, tr = MT._refine_step(Rr, tr, pq, K_left, thr)
+    except RuntimeError as e:
+        fail(f"a refinement step waited for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seeds = singular_on_card(res_k.R.device)
+    print(f"estimate_pose (frame 2): on K8 / K9 R, t and {int(res_k.inlier_count)}"
+          f" inliers identical to the twins' on the card; {ms_k:.3f} ms on "
+          f"the kernels, {ms_p:.3f} ms on the twins (host clock, "
+          f"synchronised, mean of 5); the refinement steps never wait for "
+          f"the card (sync debug mode 'error'), nor does the whole call "
+          f"(no sync warning); the singular case (seeds {seeds}) returns "
+          f"success, 2 inliers and a finite pose [{card}]")
+    return [
+        dict(name="ransac_score", route="cuda",
+             source="edge_based_visual_odometry_tpu_torch/csrc/ransac_score.cu",
+             replaces="edge_based_visual_odometry_tpu/models/motion_tracker.py:240",
+             max_abs_err=0.0, library_ms=None,
+             plain_ms=sum(r["plain_ms"] for r in calls.values()),
+             calls=calls, estimate_pose_ms=ms_k,
+             estimate_pose_on_twins_ms=ms_p, **k8),
+        dict(name="pose_gn", route="cuda",
+             source="edge_based_visual_odometry_tpu_torch/csrc/pose_gn.cu",
+             replaces="edge_based_visual_odometry_tpu/models/motion_tracker.py:307",
+             max_abs_err=0.0, library_ms=None,
+             plain_ms=sum(r["plain_ms"] for r in steps.values()),
+             calls=steps, **k9)]
+
+
 # Phase 6g: the patch sizes past the default. Each runs with the largest
 # shift the reference's coverage guard admits there (P = 9: <= 4.34 px,
 # P = 11: <= 2.93 px; `patches.check_coverage`), P = 5 at the default.
@@ -1867,7 +2157,9 @@ def phase_sequence(seq, images, card, work_dir):
               and pf["launches"]["refine_along_epipolar"] >= 1
               and pf["launches"]["refine_2dof"] == (2 if k else 0)
               and pf["launches"]["cluster_edges"] == (2 if k else 1)
-              and pf["launches"]["edge_descriptors"] == 3,
+              and pf["launches"]["edge_descriptors"] == 3
+              and pf["launches"]["ransac_score"] == (2 if k else 0)
+              and pf["launches"]["pose_gn"] == (4 if k else 0),
               f"sequence frame {k}: kernel launches {pf['launches']}")
         check(pf["mates"] >= 21000,
               f"sequence frame {k}: mates {pf['mates']} < 21000")
@@ -2255,12 +2547,14 @@ def main():
         fail("torch.cuda.is_available() is false")
     from edge_based_visual_odometry_tpu_torch.config import VOConfig
     from edge_based_visual_odometry_tpu_torch.io import synthetic as S
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
     from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
     from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
     from edge_based_visual_odometry_tpu_torch.ops import toed
     from edge_based_visual_odometry_tpu_torch.utils import timing as TIM
 
@@ -2490,6 +2784,25 @@ def main():
         patch_ops.append((a, kw))
         return sample(*a, **kw)
 
+    # the operands of the last temporal step's (frame 2's) estimate_pose,
+    # its two K8 and four K9 calls for phase 6h
+    pose_ops = {"k8": [], "k9": [], "est": None}
+    count, normal_eq, estimate = (POSE.ransac_counts,
+                                  POSE.pose_gn_normal_equations,
+                                  MT.estimate_pose)
+
+    def recording_count(*a, **kw):
+        pose_ops["k8"].append((a, kw))
+        return count(*a, **kw)
+
+    def recording_normal_eq(*a, **kw):
+        pose_ops["k9"].append((a, kw))
+        return normal_eq(*a, **kw)
+
+    def recording_estimate(*a, **kw):
+        pose_ops.update(k8=[], k9=[], est=a)
+        return estimate(*a, **kw)
+
     # StageTimer.timed waits for the card before and after each step
     timer = TIM.StageTimer()
     stereo = pipe._stereo_step
@@ -2507,6 +2820,9 @@ def main():
     PAT.edge_patches_flat = recording_patches
     for kind in gates:
         setattr(PAT, f"dense_gates_{kind}", recording_gates(kind))
+    POSE.ransac_counts = recording_count
+    POSE.pose_gn_normal_equations = recording_normal_eq
+    MT.estimate_pose = recording_estimate
     try:
         with K3Watch() as watch:
             for k, (l, r) in enumerate(frames):
@@ -2527,6 +2843,9 @@ def main():
         PAT.edge_patches_flat = sample
         for kind, fn in gates.items():
             setattr(PAT, f"dense_gates_{kind}", fn)
+        POSE.ransac_counts = count
+        POSE.pose_gn_normal_equations = normal_eq
+        MT.estimate_pose = estimate
     launches = dict(CB.LAUNCHES)
     k3_lanes = {"frame": watch.read("frame")}
 
@@ -2552,6 +2871,11 @@ def main():
         # K7: left edges, right edges, stage-11 centres, final mates
         check(dl["edge_patches"] == 4,
               f"frame {k}: K7 launched {dl['edge_patches']} times")
+        # K8: the prescore and the full count; K9: the 4 refinement steps
+        check(dl["ransac_score"] == (2 if k else 0)
+              and dl["pose_gn"] == (4 if k else 0),
+              f"frame {k}: K8 / K9 launched {dl['ransac_score']} / "
+              f"{dl['pose_gn']} times")
         m = fr.mates
         v = m.valid
         check(m.gamma.shape == (cfg.max_mates, 3), f"frame {k}: gamma shape")
@@ -2615,6 +2939,9 @@ def main():
     for kd in kernels:
         if kd["name"] in PATCH_KERNELS:
             kd["by_patch_size"] = {P: w[kd["name"]] for P, w in wide.items()}
+    # ---- 6h. K8 and K9 vs plain, bit for bit, on frame 2's calls ----
+    kernels += phase_pose(pose_ops["k8"], pose_ops["k9"], pose_ops["est"],
+                          card)
 
     # ---- 7, 8. the sequence path and the evaluation path ----
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2672,6 +2999,15 @@ def main():
           "a stereo step): " + "; ".join(
               f"{p} {c['dense_gates']} / {c['edge_patches']}"
               for p, c in by_path.items()))
+    # K8 twice and K9 four times per temporal step
+    for path, c in by_path.items():
+        steps = c["refine_2dof"] // 2
+        check(c["ransac_score"] == 2 * steps and c["pose_gn"] == 4 * steps,
+              f"{path}: K8 / K9 launched {c['ransac_score']} / "
+              f"{c['pose_gn']} times for {steps} temporal steps")
+    print("K8 / K9 launches per path (2 / 4 a temporal step): " + "; ".join(
+        f"{p} {c['ransac_score']} / {c['pose_gn']}"
+        for p, c in by_path.items()))
 
     # last, one more frame under torch.profiler: the kernels of a frame,
     # their time on the card, and the share of the frame's wall time they
@@ -2719,7 +3055,8 @@ def main():
             "step_launches_ms", "glue_ms", "pair_batch_ms",
             "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
             "against_jax_max_ulps", "against_jax_max_err", "calls",
-            "launch_ms", "pct_of_bound_with_wrapper", "by_patch_size")}
+            "launch_ms", "pct_of_bound_with_wrapper", "by_patch_size",
+            "estimate_pose_ms", "estimate_pose_on_twins_ms")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -216,7 +216,8 @@ def two_view_linear_triangulation(gamma1_px, gamma2_px, K1_inv, K2_inv, R, T):
     b = -A[..., 3]
     AtA = torch.einsum("...ki,...kj->...ij", M, M)
     Atb = torch.einsum("...ki,...k->...i", M, b)
-    return torch.linalg.solve(AtA, Atb)
+    # a singular system gives non-finite values, as JAX's solve does
+    return torch.linalg.solve_ex(AtA, Atb)[0]
 
 
 def multiview_linear_triangulation(pts_px, Rs, Ts, K_inv):
@@ -240,7 +241,7 @@ def multiview_linear_triangulation(pts_px, Rs, Ts, K_inv):
                                  Tp[0] - mp[0] * Tp[2]]))
     A = torch.stack(rows, 0)
     M, b = A[:, :3], -A[:, 3]
-    return torch.linalg.solve(M.T @ M, M.T @ b)
+    return torch.linalg.solve_ex(M.T @ M, M.T @ b)[0]
 
 
 def rad2deg(x):

@@ -169,7 +169,9 @@ def ba_iteration(p: BAProblem, damping: float, huber: float,
         accumulate=True)
 
     lam = damping
-    H_ll_inv = torch.linalg.inv(H_ll + lam * eye3[None])
+    # singular blocks (damping 0, a landmark no one observes) give
+    # non-finite values, as JAX's inv and solve do, instead of raising
+    H_ll_inv = torch.linalg.inv_ex(H_ll + lam * eye3[None])[0]
 
     # --- Schur complement (both einsums reduce over the landmark axis) ---
     WHinv = torch.einsum("lkab,lbc->lkac", Wc, H_ll_inv)     # (L, K, 6, 3)
@@ -187,8 +189,8 @@ def ba_iteration(p: BAProblem, damping: float, huber: float,
     # gauge fix: freeze pose 0 with a strong prior
     S[0, :, 0, :] += 1e8 * eye6
 
-    dp = torch.linalg.solve(S.reshape(Kn * 6, Kn * 6),
-                            rhs.reshape(-1)).reshape(Kn, 6)
+    dp = torch.linalg.solve_ex(S.reshape(Kn * 6, Kn * 6),
+                               rhs.reshape(-1))[0].reshape(Kn, 6)
     dl = torch.einsum("lab,lb->la", H_ll_inv,
                       b_l - torch.einsum("lkab,ka->lb", Wc, dp))
 

@@ -4,6 +4,11 @@ Port of `edge_based_visual_odometry_tpu/models/motion_tracker.py`: quads lifted 
 hypotheses drawn at once, gated by the 4 rigid-invariance constraints,
 solved by closed-form triad alignment, prescored on the top quads, scored
 in full for the best `ransac_prescore_keep`, then polished by inlier GN.
+The counts and the GN step's normal equations are the hand-written
+kernels K8 and K9 on the card, their plain twins on the CPU
+(`ops/pose.py`); the stages of `estimate_pose` are functions of their own
+(`_hypotheses`, `_prescore`, `_rank`, `_full_count`, `_refine_step`,
+`_final_count`), so that a run can time them apart.
 
 Hypothesis draws come from a `torch.Generator` seeded with the frame's
 seed; the reference's threefry draws cannot be reproduced, so
@@ -22,8 +27,7 @@ from edge_based_visual_odometry_tpu_torch.models.temporal_matcher import (
     TemporalQuads)
 from edge_based_visual_odometry_tpu_torch.models.types import (
     RigArrays, StereoMates)
-
-SCORE_CHUNK = 1024   # hypotheses per chunk of the (K, Q) scoring
+from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
 
 
 class PoseQuads(NamedTuple):
@@ -188,94 +192,104 @@ def constraint_sweep_metrics(pq: PoseQuads, cfg: VOConfig,
     return torch.stack(rows)
 
 
-def _inlier_counts(KG, Kt, gamma, cf_left, valid, thresh):
-    """Per-hypothesis inlier counts over quads (with cheirality)."""
-    out = []
-    for s in range(0, KG.shape[0], SCORE_CHUNK):
-        uvw = (torch.einsum("kij,qj->kqi", KG[s:s + SCORE_CHUNK], gamma)
-               + Kt[s:s + SCORE_CHUNK, None, :])
-        uv = uvw[..., :2] / uvw[..., 2:3]
-        err = torch.linalg.norm(uv - cf_left[None], dim=-1)
-        inl = (err < thresh) & valid[None] & (uvw[..., 2] > 1e-6)
-        out.append(inl.sum(1))
-    return torch.cat(out)
+def _pick(a, i):
+    """a[i] for a 0-dim index tensor, read on the device: indexing with a
+    0-dim tensor reads its value on the host and waits for the card."""
+    return a.index_select(0, i.reshape(1))[0]
+
+
+def _hypotheses(pq: PoseQuads, rig: RigArrays, cfg: VOConfig, seed: int,
+                idx=None):
+    """The K drawn pairs' gate, closed-form poses and projections K R,
+    K t."""
+    _, _, samples = _sample_quad_pairs(pq, cfg, seed,
+                                       cfg.ransac_max_iterations, idx)
+    c1, c2, c3, c4 = _constraint_gates(samples, cfg)
+    R, t = _pose_from_pair(*samples)
+    KG = torch.einsum("ij,kjl->kil", rig.K_left, R).contiguous()
+    Kt = torch.einsum("ij,kj->ki", rig.K_left, t).contiguous()
+    return c1 & c2 & c3 & c4, R, t, KG, Kt
+
+
+def _prescore(KG, Kt, gate, pq: PoseQuads, Qs: int, thr: float):
+    """Every hypothesis's count on the first Qs quads (K8 on the card);
+    -1 where gated out."""
+    return POSE.ransac_counts(KG, Kt, pq.gamma[:Qs], pq.cf_left[:Qs],
+                              pq.valid[:Qs], thr, gate=gate)
+
+
+def _rank(counts, keep: int):
+    """The hypotheses of the `keep` best prescores, ties in draw order."""
+    return torch.sort(counts, descending=True, stable=True).indices[:keep]
+
+
+def _full_count(KG, Kt, gate, pq: PoseQuads, thr: float, index=None):
+    """Counts on every quad of the hypotheses `index` (all without it; K8
+    on the card); -1 where gated out."""
+    return POSE.ransac_counts(KG, Kt, pq.gamma, pq.cf_left, pq.valid, thr,
+                              gate=gate, index=index)
+
+
+def _refine_step(Rr, tr, pq: PoseQuads, K_left, thr: float):
+    """One inlier Gauss-Newton step of the pose: the normal equations (K9
+    on the card), then the 6 x 6 solve and the update, which keep the pose
+    where fewer than 3 quads weigh in. A singular H yields a non-finite
+    step, as JAX's solve does; nothing here waits for the card."""
+    s = POSE.pose_gn_normal_equations(Rr, tr, pq.gamma, pq.cf_left,
+                                      pq.valid, K_left, thr)
+    Hm = POSE.normal_matrix(s) + 1e-6 * torch.eye(6, device=s.device)
+    dp = torch.linalg.solve_ex(Hm, s[21:27])[0]
+    dR = geom.so3_exp(dp[:3])
+    ok = s[27] >= 3
+    return (torch.where(ok, dR @ Rr, Rr),
+            torch.where(ok, dR @ tr + dp[3:], tr))
+
+
+def _final_count(Rr, tr, pq: PoseQuads, K_left, thr: float):
+    """The refined pose's inlier count, in JAX's K (R gamma + t) order."""
+    p = torch.einsum("ij,qj->qi", Rr, pq.gamma) + tr
+    uvw = torch.einsum("ij,qj->qi", K_left, p)
+    e = torch.linalg.norm(uvw[:, :2] / uvw[:, 2:3] - pq.cf_left, dim=-1)
+    return ((e < thr) & pq.valid & (uvw[:, 2] > 1e-6)).sum()
 
 
 def estimate_pose(pq: PoseQuads, rig: RigArrays, cfg: VOConfig,
                   seed: Optional[int] = None, idx=None) -> RansacResult:
     """Vectorized constraint-gated RANSAC; `idx` = (idx1, idx2) injects
-    the hypothesis draws."""
+    the hypothesis draws. On the card the counts run in K8 and the
+    refinement's normal equations in K9 (`ops/pose.py`)."""
     K = cfg.ransac_max_iterations
     seed = cfg.ransac_seed if seed is None else seed
-    _, _, samples = _sample_quad_pairs(pq, cfg, seed, K, idx)
-    c1, c2, c3, c4 = _constraint_gates(samples, cfg)
-    gate = c1 & c2 & c3 & c4
-    R, t = _pose_from_pair(*samples)
-    KG = torch.einsum("ij,kjl->kil", rig.K_left, R)
-    Kt = torch.einsum("ij,kj->ki", rig.K_left, t)
+    gate, R, t, KG, Kt = _hypotheses(pq, rig, cfg, seed, idx)
     thr = cfg.ransac_max_reproj_error
-    minus1 = torch.full((), -1, dtype=torch.int64, device=R.device)
 
     Qs = cfg.ransac_prescore_quads
     if Qs and Qs < pq.gamma.shape[0]:
-        pre = _inlier_counts(KG, Kt, pq.gamma[:Qs], pq.cf_left[:Qs],
-                             pq.valid[:Qs], thr)
-        counts_pre = torch.where(gate, pre, minus1)
-        keep = min(cfg.ransac_prescore_keep, K)
-        srt = torch.sort(counts_pre, descending=True, stable=True)
-        top_pre, top_idx = srt.values[:keep], srt.indices[:keep]
-        counts_f = _inlier_counts(KG[top_idx], Kt[top_idx], pq.gamma,
-                                  pq.cf_left, pq.valid, thr)
-        counts_f = torch.where(top_pre >= 0, counts_f, minus1)
+        top_idx = _rank(_prescore(KG, Kt, gate, pq, Qs, thr),
+                        min(cfg.ransac_prescore_keep, K))
+        # a kept hypothesis is gated out exactly where its prescore is -1
+        counts_f = _full_count(KG, Kt, gate, pq, thr, index=top_idx)
         best_local = torch.argmax(counts_f)
-        best = top_idx[best_local]
-        best_raw = counts_f[best_local]
+        best = _pick(top_idx, best_local)
+        best_raw = _pick(counts_f, best_local)
     else:
-        counts = torch.where(gate, _inlier_counts(KG, Kt, pq.gamma,
-                                                  pq.cf_left, pq.valid, thr),
-                             minus1)
+        counts = _full_count(KG, Kt, gate, pq, thr)
         best = torch.argmax(counts)
-        best_raw = counts[best]
+        best_raw = _pick(counts, best)
     best_count = torch.clamp(best_raw, min=0)
     n_q = torch.clamp(pq.n_valid, min=1)
     success = pq.n_valid >= 2
     found = success & (best_raw >= 0)
     I = torch.eye(3, dtype=R.dtype, device=R.device)
-    R_best = torch.where(found, R[best], I)
-    t_best = torch.where(found, t[best], torch.zeros_like(t[best]))
+    R_best = torch.where(found, _pick(R, best), I)
+    t_best = torch.where(found, _pick(t, best), torch.zeros(
+        3, dtype=t.dtype, device=t.device))
 
     if cfg.ransac_refine:
-        fx, fy = rig.K_left[0, 0], rig.K_left[1, 1]
-        cx, cy = rig.K_left[0, 2], rig.K_left[1, 2]
         Rr, tr = R_best, t_best
         for _ in range(4):
-            Xc = torch.einsum("ij,qj->qi", Rr, pq.gamma) + tr
-            z = torch.clamp(Xc[:, 2], min=1e-6)
-            u = fx * Xc[:, 0] / z + cx
-            v = fy * Xc[:, 1] / z + cy
-            r = torch.stack([u, v], -1) - pq.cf_left
-            e = torch.linalg.norm(r, dim=-1)
-            w = ((e < thr) & pq.valid).to(torch.float32)
-            iz = 1.0 / z
-            iz2 = iz * iz
-            zz = torch.zeros_like(z)
-            Jp = torch.stack([
-                torch.stack([fx * iz, zz, -fx * Xc[:, 0] * iz2], -1),
-                torch.stack([zz, fy * iz, -fy * Xc[:, 1] * iz2], -1)], 1)
-            J_om = -torch.einsum("qij,qjk->qik", Jp, geom.skew(Xc))
-            J = torch.cat([J_om, Jp], -1)                    # (Q, 2, 6)
-            Hm = (torch.einsum("q,qia,qib->ab", w, J, J)
-                  + 1e-6 * torch.eye(6, device=J.device))
-            b = -torch.einsum("q,qia,qi->a", w, J, r)
-            dp = torch.linalg.solve(Hm, b)
-            dR = geom.so3_exp(dp[:3])
-            ok = w.sum() >= 3
-            Rr, tr = (torch.where(ok, dR @ Rr, Rr),
-                      torch.where(ok, dR @ tr + dp[3:], tr))
-        p = torch.einsum("ij,qj->qi", Rr, pq.gamma) + tr
-        uvw = torch.einsum("ij,qj->qi", rig.K_left, p)
-        e = torch.linalg.norm(uvw[:, :2] / uvw[:, 2:3] - pq.cf_left, dim=-1)
-        cnt_f = ((e < thr) & pq.valid & (uvw[:, 2] > 1e-6)).sum()
+            Rr, tr = _refine_step(Rr, tr, pq, rig.K_left, thr)
+        cnt_f = _final_count(Rr, tr, pq, rig.K_left, thr)
         finite = torch.isfinite(Rr).all() & torch.isfinite(tr).all()
         ok_refined = success & finite & (
             cnt_f >= (0.8 * best_count).to(cnt_f.dtype))

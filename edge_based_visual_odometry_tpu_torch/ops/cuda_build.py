@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
             "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
-            "dense_gates": 0, "edge_patches": 0}
+            "dense_gates": 0, "edge_patches": 0, "ransac_score": 0,
+            "pose_gn": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +84,12 @@ _SIGNATURES = {
     "edge_patches_launch": ([_P, _I, _I] + [_P] * 4 + [_I] * 2 + [_F]
                             + [_I] * 2 + [_P] * 3),
     "edge_patches_info": [_P],
+    # K8: KG, Kt, gate (or null), index (or null), n, gamma, cf, valid, Q,
+    # thresh, z_min, out, stream
+    "ransac_score_launch": [_P] * 4 + [_I] + [_P] * 3 + [_I, _F, _F] + [_P] * 2,
+    # K9: R, t, K, gamma, cf, valid, Q, thresh, z_min, threads, per_thread,
+    # partial (and ticket), out, stream
+    "pose_gn_launch": [_P] * 6 + [_I, _F, _F, _I, _I] + [_P] * 3,
 }
 
 _lock = threading.Lock()
@@ -178,7 +185,8 @@ def check_kernel_ranges(cfg):
     (`max_candidates`, `max_quad_candidates`), K5's 4 x 4 cells x 8 bins
     and at most 16 x 16 samples (K6 reads its 2 x 128-bin output), the odd
     patch size P <= 11 (2 P^2 <= 242) of K2, K3, K6 and K7, and K1's 19
-    taps (`toed_kernel_size` 17; 18 builds the same taps). The wrappers
+    taps (`toed_kernel_size` 17; 18 builds the same taps). K8 and K9 (the
+    RANSAC scoring and pose GN) take every setting. The wrappers
     refuse such settings at their launch; the pipeline's step builders
     call this on CUDA so that they fail at construction. The plain twins
     (the CPU) take these settings wherever the reference does; the

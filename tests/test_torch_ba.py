@@ -130,6 +130,35 @@ def test_run_ba_matches_jax(with_normals, with_prior):
         assert np.abs(res.t.numpy() - ts).max() < e0
 
 
+@pytest.mark.parametrize("unobserved", ["landmark", "keyframe"])
+def test_singular_ba_iteration_matches_jax(unobserved):
+    """Damping 0 with a landmark (the H_ll inverse) or a keyframe (the
+    Schur solve) that no observation constrains: JAX's inv and solve give
+    non-finite values, and so does the port, where it used to raise."""
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-2, 2, 6), rng.uniform(-2, 2, 6),
+                  rng.uniform(4, 8, 6)], 1).astype(np.float32)
+    t = np.array([[0, 0, 0], [-0.2, 0, 0]], np.float32)
+    kf, lm = np.divmod(np.arange(2 * 5), 5)          # landmark 5 unobserved
+    if unobserved == "keyframe":                      # keyframe 1 too
+        kf, lm = kf[kf == 0], lm[kf == 0]
+    uv = (X[lm] + t[kf]) @ K_CAM.T
+    f = dict(R=np.stack([np.eye(3, dtype=np.float32)] * 2), t=t, X=X,
+             obs_kf=kf, obs_lm=lm,
+             obs_uv=(uv[:, :2] / uv[:, 2:3]).astype(np.float32),
+             obs_w=np.ones(kf.size, np.float32), K_cam=K_CAM)
+    if unobserved == "keyframe":
+        f.update(X_prior=X, prior_w=np.float32(1.0))
+    p, cost = BA.ba_iteration(BA.BAProblem(**_to(f, _t)), 0.0, 2.0)
+    jp, jcost = JBA.ba_iteration(JBA.BAProblem(**_to(f, jnp.asarray)),
+                                 0.0, 2.0)
+    assert not np.isfinite(np.asarray(jp.t)).all()
+    for a, b in ((p.R, jp.R), (p.t, jp.t), (p.X, jp.X)):
+        np.testing.assert_array_equal(np.isfinite(a.numpy()),
+                                      np.isfinite(np.asarray(b)))
+    np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-4)
+
+
 def test_ba_iteration_matches_jax():
     f, _ = _problem(5, True, True)
     p, cost = BA.ba_iteration(BA.BAProblem(**_to(f, _t)), 1e-3, 2.0)

@@ -258,3 +258,44 @@ def test_k7_work_at_production_shape(B, flops, nbytes, us):
     b = C.bound(*w)
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] * 1e3 == pytest.approx(us, abs=1e-3)
+
+
+def test_k8_work_from_a_hand_made_shape():
+    """3 hypotheses, 2 gated in, over 5 quads of which 4 are valid: 26
+    flops a (gated, valid) pair; 53 bytes a hypothesis (61 with its
+    index) and 21 a quad."""
+    assert C.K8_PAIR_FLOPS == 26
+    flops, nbytes = C.k8_work(3, 2, 5, 4)
+    assert flops == 2 * 4 * 26 == 208
+    assert nbytes == 3 * 53 + 5 * 21 == 264
+    assert C.k8_work(3, 2, 5, 4, indexed=True)[1] == 3 * 61 + 5 * 21
+
+
+@pytest.mark.parametrize("n_out,Q,indexed,flops,nbytes,us", [
+    (5000, 4096, False, 532_480_000, 351_016, 15.895),
+    (256, 32768, True, 218_103_808, 703_744, 6.511)])
+def test_k8_work_at_production_shape(n_out, Q, indexed, flops, nbytes, us):
+    """VOConfig()'s prescore (5,000 hypotheses x 4,096 quads) and full
+    count (256 kept x 32,768 quads), every hypothesis gated in and every
+    quad valid: operations bound, at the FMA-free rate."""
+    f, b = C.k8_work(n_out, n_out, Q, Q, indexed)
+    assert (f, b) == (flops, nbytes)
+    w = C.with_bound(1.0, f, b, fma_free=True)
+    assert w["bound_by"] == "operations"
+    assert w["bound_ms_no_fma"] * 1e3 == pytest.approx(us, abs=1e-3)
+
+
+def test_k9_work():
+    """173 flops and 21 bytes a quad, b's 6 negations and 196 bytes of
+    R, t, K and the 28 sums once; at 32,768 quads under 0.2 us either
+    way."""
+    assert C.K9_QUAD_FLOPS == 173
+    assert C.k9_work(0) == (6, 196)
+    flops, nbytes = C.k9_work(32768)
+    assert flops == 32768 * 173 + 6 == 5_668_870
+    assert nbytes == 32768 * 21 + 196 == 688_324
+    b = C.bound(flops, nbytes)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] * 1e3 == pytest.approx(0.2055, abs=1e-3)
+    nf = C.with_bound(1.0, flops, nbytes, fma_free=True)
+    assert nf["bound_ms_no_fma"] * 1e3 == pytest.approx(0.2055, abs=1e-3)

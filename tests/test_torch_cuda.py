@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4,
-K5, K6's three entries, K7) against their plain-PyTorch twins, on the
-card, and the paths through them (the pipeline, BA, the CLI, the NCCL
+K5, K6's three entries, K7, K8, K9) against their plain-PyTorch twins, on
+the card, and the paths through them (the pipeline, BA, the CLI, the NCCL
 pair step and its production memory). Every test here needs a CUDA
 device (marker `gpu`) and skips without one. The file imports no JAX, so it also
 runs where JAX is not installed:
@@ -15,13 +15,16 @@ import torch
 import chip_smoke as C
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.io import synthetic as S
+from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+from edge_based_visual_odometry_tpu_torch.models import types as TY
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
@@ -29,6 +32,7 @@ from scripts import k6_k7_jax_reference as K67
 from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
 from tests import gate_cases as GC
+from tests import pose_cases as PC
 
 pytestmark = pytest.mark.gpu
 
@@ -920,6 +924,10 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     assert n_gpu["dense_gates"] == 3 * 3 + 2 * 2
     # K7: left edges, right edges, stage 11 and mates of each stereo step
     assert n_gpu["edge_patches"] == 3 * 4
+    # K8: the full count of each temporal step (4,096 quads at this size:
+    # no prescore); K9: its 4 refinement steps
+    assert n_gpu["ransac_score"] == 2
+    assert n_gpu["pose_gn"] == 2 * 4
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()
@@ -930,6 +938,115 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
             assert bool(tg.success)
             qc, qg = int(tc.n_quads), int(tg.n_quads)
             assert min(qc, qg) >= 0.97 * max(qc, qg)
+
+
+def _on(d, arrays):
+    return [torch.from_numpy(np.array(a)).to(d) for a in arrays]
+
+
+@pytest.mark.parametrize("n_hyp,Q,n_valid,n_index", [
+    (5000, 4096, 4000, 0), (256, 32768, 30000, 0), (5000, 32768, 29000, 256),
+    (77, 1001, 999, 0), (130, 300, 0, 0), (64, 0, 0, 0), (90, 700, 650, 1)])
+def test_ransac_score_kernel_matches_twin(dev, n_hyp, Q, n_valid, n_index):
+    """K8 against its twin on the card: counts equal, gated-out -1, with
+    and without an index; sizes off the block and tile widths."""
+    d = PC.scene_quads(Q, Q, n_valid)
+    KG, Kt, gate = _on(dev, PC.hypotheses(Q, n_hyp))
+    g, cf, v = _on(dev, (d["gamma"], d["cf_left"], d["valid"]))
+    index = None
+    if n_index:
+        index = torch.from_numpy(np.random.default_rng(n_hyp).permutation(
+            n_hyp)[:n_index]).to(dev)
+    for gt in (gate, None):
+        k = POSE.ransac_counts_cuda(KG, Kt, g, cf, v, 1.5, gate=gt,
+                                    index=index)
+        p = POSE.ransac_counts_plain(KG, Kt, g, cf, v, 1.5, gate=gt,
+                                     index=index)
+        torch.cuda.synchronize()
+        assert k.dtype == p.dtype == torch.int32
+        assert torch.equal(k, p)
+    if Q > 1000 and n_valid:
+        assert int(k.max()) > 0
+
+
+@pytest.mark.parametrize("Q", [0, 1, 127, 511, 512, 513, 4096, 32768])
+def test_pose_gn_kernel_matches_twin(dev, Q):
+    """K9's 28 sums bit-equal to its twin's on the card; a NaN in an
+    invalid quad poisons both."""
+    d = PC.scene_quads(Q, Q, (9 * Q) // 10)
+    R, t = PC.gn_pose(Q)
+    args = _on(dev, (R, t, d["gamma"], d["cf_left"], d["valid"], PC.K_LEFT))
+    k = POSE.pose_gn_normal_equations_cuda(*args, 1.5)
+    p = POSE.pose_gn_normal_equations_plain(*args, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    if Q > 2:
+        assert 0 < float(k[27]) <= (9 * Q) // 10
+        args[2][-1, 0] = float("nan")
+        k = POSE.pose_gn_normal_equations_cuda(*args, 1.5)
+        p = POSE.pose_gn_normal_equations_plain(*args, 1.5)
+        assert bool(k[:27].isnan().any())
+        assert torch.equal(k.isnan(), p.isnan())
+        assert torch.equal(k[~k.isnan()], p[~p.isnan()])
+
+
+def test_estimate_pose_kernels_match_twins_and_launch(dev):
+    """estimate_pose at VOConfig()'s RANSAC sizes (5,000 hypotheses,
+    prescore on 4,096 of 32,768 quads, 256 kept): R, t and the count equal
+    on K8 / K9 and on the twins; 2 + 4 launches; the call never waits for
+    the card."""
+    d = PC.scene_quads(0, 32768, 30000)
+    cfg = VOConfig()
+    rig = TY.rig_arrays_from_rig(S.default_rig(120, 160), dev)
+    pq = MT.PoseQuads(**dict(zip(d, _on(dev, d.values()))))
+    CB.reset_launch_counts()
+    res = MT.estimate_pose(pq, rig, cfg, seed=5)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["ransac_score"] == 2 and CB.LAUNCHES["pose_gn"] == 4
+    with C.pose_twins():
+        ref = MT.estimate_pose(pq, rig, cfg, seed=5)
+    assert bool(res.success) and int(res.inlier_count) > 15000
+    assert torch.equal(res.R, ref.R) and torch.equal(res.t, ref.t)
+    assert int(res.inlier_count) == int(ref.inlier_count)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        MT.estimate_pose(pq, rig, cfg, seed=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_estimate_pose_singular_case_on_the_card(dev):
+    """The refinement's exactly singular solve: a finite pose, success and
+    2 inliers on the card, within 1e-4 of the CPU's
+    (`chip_smoke.singular_on_card`, every seed of tests/pose_cases.py)."""
+    assert C.singular_on_card(dev) == PC.SINGULAR_SEEDS
+
+
+def test_pose_dispatch(dev, monkeypatch):
+    """CUDA tensors launch K8 / K9 (one count each); CPU tensors never
+    build."""
+    d = PC.scene_quads(1, 600, 500)
+    KG, Kt, gate = _on(dev, PC.hypotheses(1, 70))
+    g, cf, v = _on(dev, (d["gamma"], d["cf_left"], d["valid"]))
+    R, t, K = _on(dev, (*PC.gn_pose(1), PC.K_LEFT))
+    before = dict(CB.LAUNCHES)
+    POSE.ransac_counts(KG, Kt, g, cf, v, 1.5, gate=gate)
+    POSE.pose_gn_normal_equations(R, t, g, cf, v, K, 1.5)
+    torch.cuda.synchronize()
+    assert CB.LAUNCHES["ransac_score"] == before["ransac_score"] + 1
+    assert CB.LAUNCHES["pose_gn"] == before["pose_gn"] + 1
+
+    def no_build():
+        raise AssertionError("CPU tensors must not build or launch a kernel")
+
+    monkeypatch.setattr(CB, "lib", no_build)
+    POSE.ransac_counts(KG.cpu(), Kt.cpu(), g.cpu(), cf.cpu(), v.cpu(), 1.5,
+                       gate=gate.cpu())
+    POSE.pose_gn_normal_equations(R.cpu(), t.cpu(), g.cpu(), cf.cpu(),
+                                  v.cpu(), K.cpu(), 1.5)
+    assert CB.LAUNCHES["ransac_score"] == before["ransac_score"] + 1
+    assert CB.LAUNCHES["pose_gn"] == before["pose_gn"] + 1
 
 
 def test_run_ba_on_the_card_matches_cpu(dev):

@@ -267,6 +267,31 @@ def test_bilinear_sample_nan_matches_jax():
     np.testing.assert_allclose(val.numpy(), np.asarray(jval), atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["two_view", "multiview"])
+def test_singular_triangulation_matches_jax(name):
+    """Zero baseline at the principal point: the normal equations are
+    exactly singular. JAX's solve returns NaN; the port returns the same
+    instead of raising."""
+    K = np.array([[300.0, 0, 80.0], [0, 300.0, 60.0], [0, 0, 1]], np.float32)
+    Kinv = np.linalg.inv(K).astype(np.float32)
+    I3, T0 = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    px = np.array([80.0, 60.0], np.float32)
+    if name == "two_view":
+        X = GEO.two_view_linear_triangulation(
+            *(torch.from_numpy(a) for a in (px, px, Kinv, Kinv, I3, T0)))
+        Xj = JGEO.two_view_linear_triangulation(
+            *(jnp.asarray(a) for a in (px, px, Kinv, Kinv, I3, T0)))
+    else:
+        pts, Rs, Ts = np.stack([px] * 3), np.stack([I3] * 2), np.stack([T0] * 2)
+        X = GEO.multiview_linear_triangulation(
+            *(torch.from_numpy(a) for a in (pts, Rs, Ts, Kinv)))
+        Xj = JGEO.multiview_linear_triangulation(
+            *(jnp.asarray(a) for a in (pts, Rs, Ts, Kinv)))
+    Xj = np.asarray(Xj)
+    assert not np.isfinite(Xj).any()
+    np.testing.assert_array_equal(np.isfinite(X.numpy()), np.isfinite(Xj))
+
+
 @pytest.mark.parametrize("name", ["pose_algebra", "quaternions",
                                   "two_view", "multiview", "angles"])
 def test_geometry_rest_matches_jax(name):

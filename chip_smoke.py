@@ -3018,8 +3018,7 @@ def main():
         pipe.run_frame(*seq_images[3])
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t) * 1e3
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_card = TIM.device_ops(prof, torch.autograd.DeviceType.CUDA)
     dev_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     check(dev_ms > 0, "traced frame 3: the profiler saw no device time")
     print(f"traced frame 3: {sum(e.count for e in on_card)} kernels and "

@@ -28,6 +28,7 @@ from edge_based_visual_odometry_tpu_torch.models.temporal_matcher import (
 from edge_based_visual_odometry_tpu_torch.models.types import (
     RigArrays, StereoMates)
 from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 
 class PoseQuads(NamedTuple):
@@ -260,42 +261,47 @@ def estimate_pose(pq: PoseQuads, rig: RigArrays, cfg: VOConfig,
     refinement's normal equations in K9 (`ops/pose.py`)."""
     K = cfg.ransac_max_iterations
     seed = cfg.ransac_seed if seed is None else seed
-    gate, R, t, KG, Kt = _hypotheses(pq, rig, cfg, seed, idx)
+    with span("pose.hypotheses"):
+        gate, R, t, KG, Kt = _hypotheses(pq, rig, cfg, seed, idx)
     thr = cfg.ransac_max_reproj_error
 
-    Qs = cfg.ransac_prescore_quads
-    if Qs and Qs < pq.gamma.shape[0]:
-        top_idx = _rank(_prescore(KG, Kt, gate, pq, Qs, thr),
-                        min(cfg.ransac_prescore_keep, K))
-        # a kept hypothesis is gated out exactly where its prescore is -1
-        counts_f = _full_count(KG, Kt, gate, pq, thr, index=top_idx)
-        best_local = torch.argmax(counts_f)
-        best = _pick(top_idx, best_local)
-        best_raw = _pick(counts_f, best_local)
-    else:
-        counts = _full_count(KG, Kt, gate, pq, thr)
-        best = torch.argmax(counts)
-        best_raw = _pick(counts, best)
-    best_count = torch.clamp(best_raw, min=0)
-    n_q = torch.clamp(pq.n_valid, min=1)
-    success = pq.n_valid >= 2
-    found = success & (best_raw >= 0)
-    I = torch.eye(3, dtype=R.dtype, device=R.device)
-    R_best = torch.where(found, _pick(R, best), I)
-    t_best = torch.where(found, _pick(t, best), torch.zeros(
-        3, dtype=t.dtype, device=t.device))
+    with span("pose.score"):
+        Qs = cfg.ransac_prescore_quads
+        if Qs and Qs < pq.gamma.shape[0]:
+            top_idx = _rank(_prescore(KG, Kt, gate, pq, Qs, thr),
+                            min(cfg.ransac_prescore_keep, K))
+            # a kept hypothesis is gated out exactly where its prescore is
+            # -1
+            counts_f = _full_count(KG, Kt, gate, pq, thr, index=top_idx)
+            best_local = torch.argmax(counts_f)
+            best = _pick(top_idx, best_local)
+            best_raw = _pick(counts_f, best_local)
+        else:
+            counts = _full_count(KG, Kt, gate, pq, thr)
+            best = torch.argmax(counts)
+            best_raw = _pick(counts, best)
+        best_count = torch.clamp(best_raw, min=0)
+        n_q = torch.clamp(pq.n_valid, min=1)
+        success = pq.n_valid >= 2
+        found = success & (best_raw >= 0)
+        I = torch.eye(3, dtype=R.dtype, device=R.device)
+        R_best = torch.where(found, _pick(R, best), I)
+        t_best = torch.where(found, _pick(t, best), torch.zeros(
+            3, dtype=t.dtype, device=t.device))
 
     if cfg.ransac_refine:
-        Rr, tr = R_best, t_best
-        for _ in range(4):
-            Rr, tr = _refine_step(Rr, tr, pq, rig.K_left, thr)
-        cnt_f = _final_count(Rr, tr, pq, rig.K_left, thr)
-        finite = torch.isfinite(Rr).all() & torch.isfinite(tr).all()
-        ok_refined = success & finite & (
-            cnt_f >= (0.8 * best_count).to(cnt_f.dtype))
-        R_best = torch.where(ok_refined, Rr, R_best)
-        t_best = torch.where(ok_refined, tr, t_best)
-        best_count = torch.where(ok_refined, cnt_f, best_count)
+        with span("pose.refine"):
+            Rr, tr = R_best, t_best
+            for _ in range(4):
+                Rr, tr = _refine_step(Rr, tr, pq, rig.K_left, thr)
+        with span("pose.count"):
+            cnt_f = _final_count(Rr, tr, pq, rig.K_left, thr)
+            finite = torch.isfinite(Rr).all() & torch.isfinite(tr).all()
+            ok_refined = success & finite & (
+                cnt_f >= (0.8 * best_count).to(cnt_f.dtype))
+            R_best = torch.where(ok_refined, Rr, R_best)
+            t_best = torch.where(ok_refined, tr, t_best)
+            best_count = torch.where(ok_refined, cnt_f, best_count)
 
     return RansacResult(R=R_best, t=t_best, inlier_count=best_count,
                         inlier_ratio=best_count / n_q, n_quads=pq.n_valid,

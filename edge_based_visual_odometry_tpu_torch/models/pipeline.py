@@ -37,6 +37,7 @@ from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import toed
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 
 class FrameResult(NamedTuple):
@@ -104,30 +105,41 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
 
     def step(left, right, disparity=None, occlusion=None,
              gn_capture=None) -> FrameResult:
-        both = torch.stack([
-            a.to(device) if torch.is_tensor(a) else torch.as_tensor(
-                np.asarray(a)).to(device) for a in (left, right)]).to(
-            dtype=torch.float32)
+        with span("stereo_step"):
+            return _step(left, right, disparity, occlusion, gn_capture)
+
+    def _step(left, right, disparity, occlusion, gn_capture):
+        with span("upload"):
+            # a host image's copy is pageable: the host waits for it
+            with span("wait.upload"):
+                imgs = [a.to(device) if torch.is_tensor(a) else
+                        torch.as_tensor(np.asarray(a)).to(device)
+                        for a in (left, right)]
+            both = torch.stack(imgs).to(dtype=torch.float32)
         if dists[0] is not None or dists[1] is not None:
             both = torch.stack([
                 img if d is None else IMG.undistort(img, K, d)
                 for img, K, d in zip(both, (rig_a.K_left, rig_a.K_right),
                                      dists)])
-        gxs, gys = IMG.sobel_gradients(both)
-        frame = FrameData(left=both[0], right=both[1],
-                          left_gx=gxs[0], left_gy=gys[0],
-                          right_gx=gxs[1], right_gy=gys[1])
-        led, red = toed.detect_edges(
-            both, kernel_size=cfg.toed_kernel_size, sigma=cfg.toed_sigma,
-            grad_mag_min=cfg.toed_grad_mag_min, max_edges=cfg.max_edges,
-            border=cfg.toed_border)
-        out = SM.match_stereo(
-            led, red, frame, rig_a, cfg,
-            disparity_map=to_dev(disparity) if has_gt else None,
-            occlusion_map=(to_dev(occlusion)
-                           if has_gt and occlusion is not None else None),
-            gather_ry=gather_ry, record_distributions=record_distributions,
-            gn_capture=gn_capture)
+        with span("sobel"):
+            gxs, gys = IMG.sobel_gradients(both)
+            frame = FrameData(left=both[0], right=both[1],
+                              left_gx=gxs[0], left_gy=gys[0],
+                              right_gx=gxs[1], right_gy=gys[1])
+        with span("detect_edges"):
+            led, red = toed.detect_edges(
+                both, kernel_size=cfg.toed_kernel_size, sigma=cfg.toed_sigma,
+                grad_mag_min=cfg.toed_grad_mag_min, max_edges=cfg.max_edges,
+                border=cfg.toed_border)
+        with span("match_stereo"):
+            out = SM.match_stereo(
+                led, red, frame, rig_a, cfg,
+                disparity_map=to_dev(disparity) if has_gt else None,
+                occlusion_map=(to_dev(occlusion)
+                               if has_gt and occlusion is not None else None),
+                gather_ry=gather_ry,
+                record_distributions=record_distributions,
+                gn_capture=gn_capture)
         return FrameResult(frame=frame, mates=out[0], stereo_metrics=out[2],
                            n_left_edges=led.count, n_right_edges=red.count,
                            distributions=out[3] if record_distributions
@@ -149,11 +161,16 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
 
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,
              seed) -> TemporalResult:
-        quads, tmetrics = TM.match_temporal(
-            kf_mates, cf_mates, kf_frame, cf_frame, geom.Pose(rel_R, rel_t),
-            rig_a, cfg, use_gt=use_gt)
-        pq = MT.lift_quads(kf_mates, quads, rig_a, cfg, use_gt=use_gt)
-        res = MT.estimate_pose(pq, rig_a, cfg, seed)
+        with span("temporal_step"):
+            with span("match_temporal"):
+                quads, tmetrics = TM.match_temporal(
+                    kf_mates, cf_mates, kf_frame, cf_frame,
+                    geom.Pose(rel_R, rel_t), rig_a, cfg, use_gt=use_gt)
+            with span("lift_quads"):
+                pq = MT.lift_quads(kf_mates, quads, rig_a, cfg,
+                                   use_gt=use_gt)
+            with span("estimate_pose"):
+                res = MT.estimate_pose(pq, rig_a, cfg, seed)
         return TemporalResult(quads=quads, temporal_metrics=tmetrics,
                               R=res.R, t=res.t, inlier_count=res.inlier_count,
                               inlier_ratio=res.inlier_ratio,
@@ -258,6 +275,11 @@ class VOPipeline:
         None). `disparity`, `occlusion`: GT left disparity and
         non-occlusion mask (255 = visible) of the GT supervision mode;
         `gt_pose`: world->cam GT pose of the frame (`use_gt_pose`)."""
+        with span("frame", self.frame_idx):
+            return self._run_frame(left_img, right_img, disparity, gt_pose,
+                                   occlusion)
+
+    def _run_frame(self, left_img, right_img, disparity, gt_pose, occlusion):
         gt_pose = self._on_device(gt_pose)
         if self.has_gt_disparity:
             if occlusion is None:
@@ -269,12 +291,13 @@ class VOPipeline:
             fr = self._stereo_step(left_img, right_img)
         tr = None
         if self.keyframe is None:
-            self._set_keyframe(fr, gt_pose)
-            self.trajectory.append(self.kf_pose_est)
-            self.prev_cam_pose = self.kf_pose_est
-            if self.wba is not None:
-                self.wba.add_keyframe(fr.mates, self.kf_pose_est)
-                self._ba_kf_frames.append(self.frame_idx)
+            with span("keyframe"):
+                self._set_keyframe(fr, gt_pose)
+                self.trajectory.append(self.kf_pose_est)
+                self.prev_cam_pose = self.kf_pose_est
+                if self.wba is not None:
+                    self.wba.add_keyframe(fr.mates, self.kf_pose_est)
+                    self._ba_kf_frames.append(self.frame_idx)
         else:
             if self.use_gt_pose:
                 rel = geom.relative_pose(self.kf_pose_gt, gt_pose)
@@ -285,7 +308,9 @@ class VOPipeline:
             tr = step(self.keyframe.mates, self.keyframe.frame, fr.mates,
                       fr.frame, rel.R, rel.t,
                       self.cfg.ransac_seed + self.frame_idx)
-            if bool(tr.success):
+            with span("wait.success"):
+                success = bool(tr.success)
+            if success:
                 self._have_velocity = True
             if self.use_gt_pose:
                 self.temporal_metrics_log.append(
@@ -296,14 +321,17 @@ class VOPipeline:
             # constant-velocity prediction: previous frame -> current frame
             vel = geom.relative_pose(self.prev_cam_pose, cam_pose)
             self.prev_cam_pose = cam_pose
-            if self._should_rekeyframe(tr):
-                self.kf_pose_est = cam_pose
-                self._set_keyframe(fr, gt_pose)
-                self.last_rel = vel
-                if self.wba is not None:
+            with span("keyframe"):
+                rekeyframe = self._should_rekeyframe(tr)
+                if rekeyframe:
+                    self.kf_pose_est = cam_pose
+                    self._set_keyframe(fr, gt_pose)
+                    self.last_rel = vel
+                else:
+                    self.last_rel = vel.compose(rel_est)
+            if rekeyframe and self.wba is not None:
+                with span("window_ba"):
                     self._run_window_ba(fr, tr, cam_pose)
-            else:
-                self.last_rel = vel.compose(rel_est)
         self.frame_idx += 1
         return fr, tr
 
@@ -336,8 +364,9 @@ class VOPipeline:
             return False
         if self.keyframe_policy == "every_frame":
             return True
-        return (float(tr.inlier_ratio) < self.rekeyframe_min_inlier_ratio
-                or int(tr.n_quads) < self.rekeyframe_min_quads)
+        with span("wait.keyframe"):
+            return (float(tr.inlier_ratio) < self.rekeyframe_min_inlier_ratio
+                    or int(tr.n_quads) < self.rekeyframe_min_quads)
 
     def _set_keyframe(self, fr: FrameResult, gt_pose: Optional[geom.Pose]):
         self.keyframe = fr

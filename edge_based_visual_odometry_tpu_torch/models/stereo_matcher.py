@@ -34,6 +34,7 @@ from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 STAGE_NAMES = (
     "Epipolar Proximity", "Location Proximity", "Orientation", "SIFT", "NCC",
@@ -223,100 +224,113 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     H, W = frame.left.shape
     dev = frame.left.device
 
-    lx, ly, lt = left_edges.x, left_edges.y, left_edges.theta
-    row_mask = left_edges.valid
-    epi = geom.epipolar_lines(rig.F21, torch.stack([lx, ly], -1))
+    with span("stereo.gather"):
+        lx, ly, lt = left_edges.x, left_edges.y, left_edges.theta
+        row_mask = left_edges.valid
+        epi = geom.epipolar_lines(rig.F21, torch.stack([lx, ly], -1))
 
-    # ---- GT supervision: GT right location and 3D point per left edge ----
-    if has_gt:
-        disp, disp_ok = P.bilinear_sample_nan(disparity_map, lx, ly)
-        deg = geom.rad2deg(lt)
-        orient_excl = ((torch.abs(deg) < cfg.gt_orient_exclusion_deg)
-                       | (torch.abs(deg - 180.0) < cfg.gt_orient_exclusion_deg)
-                       | (torch.abs(deg + 180.0) < cfg.gt_orient_exclusion_deg))
-        gt_ok = disp_ok & torch.isfinite(disp) & (disp >= 0) & ~orient_excl
-        if occlusion_map is not None:
-            # bilinear >= 254 == all 4 neighbour pixels are 255 (visible)
-            occ, occ_in = P.bilinear_sample_nan(occlusion_map, lx, ly)
-            gt_ok = gt_ok & occ_in & (occ >= 254.0)
-        minus1 = torch.full_like(lx, -1.0)
-        gt_x = torch.where(gt_ok, lx - disp, minus1)
-        gt_y = torch.where(gt_ok, ly, minus1)
-        ray1 = geom.pixel_to_ray(rig.K_left_inv, torch.stack([lx, ly], -1))
-        ray2 = geom.pixel_to_ray(rig.K_left_inv, torch.stack([gt_x, gt_y], -1))
-        gamma_l = geom.backproject_two_rays(rig.R21, rig.T21, ray1, ray2)
-        gamma_r = torch.einsum("ij,nj->ni", rig.R21, gamma_l) + rig.T21
-        row_mask = row_mask & gt_ok
-    else:
-        gt_x = torch.full((N,), -1.0, device=dev)
-        gt_y = torch.full((N,), -1.0, device=dev)
-        gamma_l = torch.full((N, 3), -1.0, device=dev)
-        gamma_r = torch.full((N, 3), -1.0, device=dev)
+        # ---- GT supervision: GT right location and 3D point per left
+        # edge ----
+        if has_gt:
+            disp, disp_ok = P.bilinear_sample_nan(disparity_map, lx, ly)
+            deg = geom.rad2deg(lt)
+            excl = cfg.gt_orient_exclusion_deg
+            orient_excl = ((torch.abs(deg) < excl)
+                           | (torch.abs(deg - 180.0) < excl)
+                           | (torch.abs(deg + 180.0) < excl))
+            gt_ok = (disp_ok & torch.isfinite(disp) & (disp >= 0)
+                     & ~orient_excl)
+            if occlusion_map is not None:
+                # bilinear >= 254 == all 4 neighbour pixels are 255 (visible)
+                occ, occ_in = P.bilinear_sample_nan(occlusion_map, lx, ly)
+                gt_ok = gt_ok & occ_in & (occ >= 254.0)
+            minus1 = torch.full_like(lx, -1.0)
+            gt_x = torch.where(gt_ok, lx - disp, minus1)
+            gt_y = torch.where(gt_ok, ly, minus1)
+            ray1 = geom.pixel_to_ray(rig.K_left_inv,
+                                     torch.stack([lx, ly], -1))
+            ray2 = geom.pixel_to_ray(rig.K_left_inv,
+                                     torch.stack([gt_x, gt_y], -1))
+            gamma_l = geom.backproject_two_rays(rig.R21, rig.T21, ray1, ray2)
+            gamma_r = torch.einsum("ij,nj->ni", rig.R21, gamma_l) + rig.T21
+            row_mask = row_mask & gt_ok
+        else:
+            gt_x = torch.full((N,), -1.0, device=dev)
+            gt_y = torch.full((N,), -1.0, device=dev)
+            gamma_l = torch.full((N, 3), -1.0, device=dev)
+            gamma_r = torch.full((N, 3), -1.0, device=dev)
 
-    r_attrs = torch.stack([right_edges.x, right_edges.y, right_edges.theta], -1)
-    rgrid = GRID.build_sorted_grid(right_edges.x, right_edges.y,
-                                   right_edges.valid, W, H, band_h=8,
-                                   attrs=r_attrs)
+        r_attrs = torch.stack([right_edges.x, right_edges.y,
+                               right_edges.theta], -1)
+        rgrid = GRID.build_sorted_grid(right_edges.x, right_edges.y,
+                                       right_edges.valid, W, H, band_h=8,
+                                       attrs=r_attrs)
 
-    # ---- veridical sets: right edges near the GT location that also pass
-    # the epipolar and orientation tolerances; rows without one leave ----
-    if has_gt:
-        _, v_attrs, vmask = GRID.query_sorted_grid_attrs(
-            rgrid, gt_x, gt_y, rx=cfg.gt_pair_dist_tol + 0.5,
-            ry=cfg.gt_pair_dist_tol + 0.5, slots_per_band=16, n_band_window=2)
-        v_x, v_y, v_t = v_attrs[0], v_attrs[1], v_attrs[2]
-        v_epi = geom.point_line_distance(epi[:, None, :],
-                                         torch.stack([v_x, v_y], -1))
-        v_d = torch.sqrt((v_x - gt_x[:, None]) ** 2 + (v_y - gt_y[:, None]) ** 2)
-        # raw (unwrapped) orientation difference
-        v_dth = torch.abs(geom.rad2deg(v_t) - geom.rad2deg(lt)[:, None])
-        vmask = (vmask & (v_epi < cfg.epipolar_line_dist_thresh)
-                 & (v_d < cfg.gt_pair_dist_tol)
-                 & (v_dth < cfg.gt_pair_orient_tol))
-        row_mask = row_mask & vmask.any(1)
+        # ---- veridical sets: right edges near the GT location that also
+        # pass the epipolar and orientation tolerances; rows without one
+        # leave ----
+        if has_gt:
+            _, v_attrs, vmask = GRID.query_sorted_grid_attrs(
+                rgrid, gt_x, gt_y, rx=cfg.gt_pair_dist_tol + 0.5,
+                ry=cfg.gt_pair_dist_tol + 0.5, slots_per_band=16,
+                n_band_window=2)
+            v_x, v_y, v_t = v_attrs[0], v_attrs[1], v_attrs[2]
+            v_epi = geom.point_line_distance(epi[:, None, :],
+                                             torch.stack([v_x, v_y], -1))
+            v_d = torch.sqrt((v_x - gt_x[:, None]) ** 2
+                             + (v_y - gt_y[:, None]) ** 2)
+            # raw (unwrapped) orientation difference
+            v_dth = torch.abs(geom.rad2deg(v_t) - geom.rad2deg(lt)[:, None])
+            vmask = (vmask & (v_epi < cfg.epipolar_line_dist_thresh)
+                     & (v_d < cfg.gt_pair_dist_tol)
+                     & (v_dth < cfg.gt_pair_orient_tol))
+            row_mask = row_mask & vmask.any(1)
 
-    # ---- stages 1-3 on the raw gather window, then compact to C ----
-    n_band_window = int(-(-2.0 * gather_ry // 8)) + 1
-    gidx, g_attrs, gmask = GRID.query_sorted_grid_attrs(
-        rgrid, lx, ly, rx=cfg.max_disparity + 1.5, ry=gather_ry,
-        slots_per_band=max(8, cfg.gather_slots // n_band_window),
-        n_band_window=n_band_window)
-    g_x, g_y, g_t = g_attrs[0], g_attrs[1], g_attrs[2]
-    metrics = []
-    if has_gt:
-        g_dgt = torch.sqrt((g_x - gt_x[:, None]) ** 2
-                           + (g_y - gt_y[:, None]) ** 2)
+        # ---- stages 1-3 on the raw gather window, then compact to C ----
+        n_band_window = int(-(-2.0 * gather_ry // 8)) + 1
+        gidx, g_attrs, gmask = GRID.query_sorted_grid_attrs(
+            rgrid, lx, ly, rx=cfg.max_disparity + 1.5, ry=gather_ry,
+            slots_per_band=max(8, cfg.gather_slots // n_band_window),
+            n_band_window=n_band_window)
+        g_x, g_y, g_t = g_attrs[0], g_attrs[1], g_attrs[2]
+        metrics = []
+        if has_gt:
+            g_dgt = torch.sqrt((g_x - gt_x[:, None]) ** 2
+                               + (g_y - gt_y[:, None]) ** 2)
 
-    def record_raw(mask):
-        metrics.append(_gt_rows(mask, row_mask, g_dgt, cfg.dist_to_gt_thresh)
-                       if has_gt else _count_row(mask))
+        def record_raw(mask):
+            metrics.append(_gt_rows(mask, row_mask, g_dgt,
+                                    cfg.dist_to_gt_thresh)
+                           if has_gt else _count_row(mask))
 
-    g_epi = geom.point_line_distance(epi[:, None, :],
-                                     torch.stack([g_x, g_y], -1))
-    if cfg.debug_preepi_metrics:
-        record_raw(gmask)          # raw gather-window occupancy (debug)
-        record_raw(row_mask[:, None])
-        record_raw(gmask & (g_epi < 100.0) & row_mask[:, None])
-    gmask = gmask & (g_epi < cfg.epipolar_line_dist_thresh) & row_mask[:, None]
-    record_raw(gmask)
-    g_d = torch.sqrt((g_x - lx[:, None]) ** 2 + (g_y - ly[:, None]) ** 2)
-    gmask = gmask & (g_d <= cfg.max_disparity)
-    record_raw(gmask)
-    g_dth = geom.orientation_diff_deg(lt[:, None], g_t)
-    gmask = gmask & geom.orientation_gate(g_dth, cfg.orientation_thresh_deg)
-    record_raw(gmask)
+        g_epi = geom.point_line_distance(epi[:, None, :],
+                                         torch.stack([g_x, g_y], -1))
+        if cfg.debug_preepi_metrics:
+            record_raw(gmask)          # raw gather-window occupancy (debug)
+            record_raw(row_mask[:, None])
+            record_raw(gmask & (g_epi < 100.0) & row_mask[:, None])
+        gmask = (gmask & (g_epi < cfg.epipolar_line_dist_thresh)
+                 & row_mask[:, None])
+        record_raw(gmask)
+        g_d = torch.sqrt((g_x - lx[:, None]) ** 2 + (g_y - ly[:, None]) ** 2)
+        gmask = gmask & (g_d <= cfg.max_disparity)
+        record_raw(gmask)
+        g_dth = geom.orientation_diff_deg(lt[:, None], g_t)
+        gmask = gmask & geom.orientation_gate(g_dth,
+                                              cfg.orientation_thresh_deg)
+        record_raw(gmask)
 
-    cand_idx, c_attrs, cmask = GRID.compact_candidates_attrs(
-        gidx, g_attrs, gmask, C, priority=g_epi)
-    # the scores a slot holds until a gate computes it
-    fill_ncc, fill_dist = 0.0, 2.0 * cfg.sift_threshold
-    state = StereoState(
-        row_mask=row_mask, lx=lx, ly=ly, ltheta=lt, epi_line=epi,
-        gt_x=gt_x, gt_y=gt_y, gamma_gt_l=gamma_l, gamma_gt_r=gamma_r,
-        cand_idx=cand_idx, cx=c_attrs[0], cy=c_attrs[1], ctheta=c_attrs[2],
-        cmask=cmask,
-        ncc=torch.full((N, C), fill_ncc, device=dev),
-        desc_dist=torch.full((N, C), fill_dist, device=dev))
+        cand_idx, c_attrs, cmask = GRID.compact_candidates_attrs(
+            gidx, g_attrs, gmask, C, priority=g_epi)
+        # the scores a slot holds until a gate computes it
+        fill_ncc, fill_dist = 0.0, 2.0 * cfg.sift_threshold
+        state = StereoState(
+            row_mask=row_mask, lx=lx, ly=ly, ltheta=lt, epi_line=epi,
+            gt_x=gt_x, gt_y=gt_y, gamma_gt_l=gamma_l, gamma_gt_r=gamma_r,
+            cand_idx=cand_idx, cx=c_attrs[0], cy=c_attrs[1], ctheta=c_attrs[2],
+            cmask=cmask,
+            ncc=torch.full((N, C), fill_ncc, device=dev),
+            desc_dist=torch.full((N, C), fill_dist, device=dev))
 
     def record(st):
         metrics.append(_metrics(st, cfg.dist_to_gt_thresh) if has_gt
@@ -356,127 +370,143 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                    n_orient=cfg.desc_orient_bins,
                    spacing=cfg.desc_sample_spacing, clip=cfg.desc_clip,
                    scale=cfg.desc_scale)
-    l_desc = DESC.edge_descriptors(frame.left_gx, frame.left_gy, lx, ly, lt,
-                                   **desc_kw)
-    r_desc = DESC.edge_descriptors(frame.right_gx, frame.right_gy,
-                                   right_edges.x, right_edges.y,
-                                   right_edges.theta, **desc_kw)
+    with span("stereo.descriptors"):
+        l_desc = DESC.edge_descriptors(frame.left_gx, frame.left_gy, lx, ly,
+                                       lt, **desc_kw)
+        r_desc = DESC.edge_descriptors(frame.right_gx, frame.right_gy,
+                                       right_edges.x, right_edges.y,
+                                       right_edges.theta, **desc_kw)
 
     # ---- patches for NCC, flat [plus | minus] (K7) ----
-    psize, pshift = cfg.patch_size, cfg.orthogonal_shift_mag
-    l_patches, l_patch_ok = P.edge_patches_flat(frame.left, lx, ly, lt, psize,
-                                                pshift)
-    r_patches, r_patch_ok = P.edge_patches_flat(
-        frame.right, right_edges.x, right_edges.y, right_edges.theta, psize,
-        pshift)
+    with span("stereo.patches"):
+        psize, pshift = cfg.patch_size, cfg.orthogonal_shift_mag
+        l_patches, l_patch_ok = P.edge_patches_flat(frame.left, lx, ly, lt,
+                                                    psize, pshift)
+        r_patches, r_patch_ok = P.edge_patches_flat(
+            frame.right, right_edges.x, right_edges.y, right_edges.theta,
+            psize, pshift)
 
     # ---- stages 4-5: descriptor gate on the live slots, NCC on its
     # survivors (K6); the other slots keep their fill ----
-    ddist, sim = P.dense_gates_stereo(
-        l_desc, r_desc, state.cand_idx, state.cmask, l_patches, l_patch_ok,
-        r_patches, r_patch_ok, cfg.sift_threshold, psize,
-        fill_dist=fill_dist, fill_ncc=fill_ncc)
-    snap_filter("sift_distance", state, ddist)
-    state = state._replace(cmask=state.cmask & (ddist < cfg.sift_threshold),
-                           desc_dist=ddist)
-    record(state)
-    snap_ambiguity("sift", state)
-    snap_filter("ncc", state, sim)
-    state = state._replace(cmask=state.cmask & (sim > cfg.ncc_thresh), ncc=sim)
-    record(state)
+    with span("stereo.gates"):
+        ddist, sim = P.dense_gates_stereo(
+            l_desc, r_desc, state.cand_idx, state.cmask, l_patches, l_patch_ok,
+            r_patches, r_patch_ok, cfg.sift_threshold, psize,
+            fill_dist=fill_dist, fill_ncc=fill_ncc)
+        snap_filter("sift_distance", state, ddist)
+        state = state._replace(
+            cmask=state.cmask & (ddist < cfg.sift_threshold), desc_dist=ddist)
+        record(state)
+        snap_ambiguity("sift", state)
+        snap_filter("ncc", state, sim)
+        state = state._replace(cmask=state.cmask & (sim > cfg.ncc_thresh),
+                               ncc=sim)
+        record(state)
 
     # ---- stages 6/7: best-nearly-best on NCC, then descriptor ----
-    state = state._replace(cmask=_bnb_keep(state.ncc, state.cmask,
-                                           cfg.bnb_ncc, higher_better=True))
-    record(state)
-    state = state._replace(cmask=_bnb_keep(state.desc_dist, state.cmask,
-                                           cfg.bnb_sift, higher_better=False))
-    record(state)
+    with span("stereo.bnb"):
+        state = state._replace(cmask=_bnb_keep(
+            state.ncc, state.cmask, cfg.bnb_ncc, higher_better=True))
+        record(state)
+        state = state._replace(cmask=_bnb_keep(
+            state.desc_dist, state.cmask, cfg.bnb_sift, higher_better=False))
+        record(state)
 
     # ---- stage 8: epipolar shift ----
-    state = _epipolar_shift(state, cfg)
-    snap_state("shift", state)
+    with span("stereo.shift"):
+        state = _epipolar_shift(state, cfg)
+        snap_state("shift", state)
 
     # ---- stage 9: photometric GN along the epipolar line (kernel K2) ----
-    rows, slots, fmask = _flatten_active(state.cmask, cfg.max_refine_pairs)
-    epi_dir = torch.stack([-state.epi_line[:, 1], state.epi_line[:, 0]], -1)
-    epi_dir = epi_dir / torch.linalg.norm(epi_dir, dim=-1, keepdim=True)
-    row_pack = torch.stack([state.lx, state.ly, state.ltheta,
-                            epi_dir[:, 0], epi_dir[:, 1]], -1)[rows]
-    cand_pack = torch.stack([state.cx, state.cy],
-                            -1).reshape(N * C, 2)[rows * C + slots]
-    gn_args = (frame.left, frame.right, frame.right_gx, frame.right_gy,
-               row_pack[:, 0].contiguous(), row_pack[:, 1].contiguous(),
-               row_pack[:, 2].contiguous(), cand_pack[:, 0].contiguous(),
-               cand_pack[:, 1].contiguous(), row_pack[:, 3:5].contiguous())
-    gn_kw = dict(patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter,
-                 tol=cfg.gn_tol, huber_delta=cfg.huber_delta,
-                 tile=cfg.gn_tile, chunk=cfg.gn_chunk, active=fmask,
-                 phase1_iters=cfg.gn_phase1_iters,
-                 phase2_budget=cfg.gn_phase2_budget)
-    if gn_capture is not None:
-        gn_capture.update(args=gn_args, kwargs=gn_kw)
-    res = GN.refine_along_epipolar_batch(*gn_args, **gn_kw)
-    # the shift applies unconditionally (the cascade keeps refined
-    # validity for statistics only)
-    state = state._replace(
-        cx=_scatter_back(state.cx, rows, slots, fmask,
-                         cand_pack[:, 0] + res.delta * row_pack[:, 3]),
-        cy=_scatter_back(state.cy, rows, slots, fmask,
-                         cand_pack[:, 1] + res.delta * row_pack[:, 4]),
-        ncc=_scatter_back(state.ncc, rows, slots, fmask, res.score),
-        desc_dist=_scatter_back(state.desc_dist, rows, slots, fmask,
-                                res.confidence))
-    record(state)
-    snap_ambiguity("photometric_refinement", state)
-    snap_state("photo_refine", state)
+    with span("stereo.refine"):
+        rows, slots, fmask = _flatten_active(state.cmask,
+                                             cfg.max_refine_pairs)
+        epi_dir = torch.stack([-state.epi_line[:, 1], state.epi_line[:, 0]],
+                              -1)
+        epi_dir = epi_dir / torch.linalg.norm(epi_dir, dim=-1, keepdim=True)
+        row_pack = torch.stack([state.lx, state.ly, state.ltheta,
+                                epi_dir[:, 0], epi_dir[:, 1]], -1)[rows]
+        cand_pack = torch.stack([state.cx, state.cy],
+                                -1).reshape(N * C, 2)[rows * C + slots]
+        gn_args = (frame.left, frame.right, frame.right_gx, frame.right_gy,
+                   row_pack[:, 0].contiguous(), row_pack[:, 1].contiguous(),
+                   row_pack[:, 2].contiguous(), cand_pack[:, 0].contiguous(),
+                   cand_pack[:, 1].contiguous(), row_pack[:, 3:5].contiguous())
+        gn_kw = dict(patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter,
+                     tol=cfg.gn_tol, huber_delta=cfg.huber_delta,
+                     tile=cfg.gn_tile, chunk=cfg.gn_chunk, active=fmask,
+                     phase1_iters=cfg.gn_phase1_iters,
+                     phase2_budget=cfg.gn_phase2_budget)
+        if gn_capture is not None:
+            gn_capture.update(args=gn_args, kwargs=gn_kw)
+        res = GN.refine_along_epipolar_batch(*gn_args, **gn_kw)
+        # the shift applies unconditionally (the cascade keeps refined
+        # validity for statistics only)
+        state = state._replace(
+            cx=_scatter_back(state.cx, rows, slots, fmask,
+                             cand_pack[:, 0] + res.delta * row_pack[:, 3]),
+            cy=_scatter_back(state.cy, rows, slots, fmask,
+                             cand_pack[:, 1] + res.delta * row_pack[:, 4]),
+            ncc=_scatter_back(state.ncc, rows, slots, fmask, res.score),
+            desc_dist=_scatter_back(state.desc_dist, rows, slots, fmask,
+                                    res.confidence))
+        record(state)
+        snap_ambiguity("photometric_refinement", state)
+        snap_state("photo_refine", state)
 
     # ---- stage 10: clustering (no orientation gate on the stereo path) ----
-    cl = CL.cluster_edges(state.cx, state.cy, state.ctheta, state.cmask,
-                          dist_thresh=cfg.cluster_dist_thresh,
-                          orient_thresh_deg=cfg.cluster_orient_thresh,
-                          by_orientation=False,
-                          gauss_sigma=cfg.cluster_orient_gauss_sigma,
-                          max_cluster_size=cfg.max_cluster_size)
-    state = state._replace(cx=torch.where(cl.mask, cl.x, state.cx),
-                           cy=torch.where(cl.mask, cl.y, state.cy),
-                           ctheta=torch.where(cl.mask, cl.theta, state.ctheta),
-                           cmask=cl.mask)
-    record(state)
-    snap_ambiguity("edge_clustering", state)
-    snap_state("cluster", state)
+    with span("stereo.cluster"):
+        cl = CL.cluster_edges(state.cx, state.cy, state.ctheta, state.cmask,
+                              dist_thresh=cfg.cluster_dist_thresh,
+                              orient_thresh_deg=cfg.cluster_orient_thresh,
+                              by_orientation=False,
+                              gauss_sigma=cfg.cluster_orient_gauss_sigma,
+                              max_cluster_size=cfg.max_cluster_size)
+        state = state._replace(
+            cx=torch.where(cl.mask, cl.x, state.cx),
+            cy=torch.where(cl.mask, cl.y, state.cy),
+            ctheta=torch.where(cl.mask, cl.theta, state.ctheta),
+            cmask=cl.mask)
+        record(state)
+        snap_ambiguity("edge_clustering", state)
+        snap_state("cluster", state)
 
     # ---- stage 11: post-cluster NCC at the new centres (K7, K6) ----
-    rows, slots, fmask = _flatten_active(state.cmask, cfg.max_refine_pairs)
-    lin = rows * C + slots
-    fx, fy, ft = (t.reshape(-1)[lin]
-                  for t in (state.cx, state.cy, state.ctheta))
-    # K7 samples the live entries only (a prefix of the list); K6 reads
-    # none of the others
-    f_patches, f_patch_ok = P.edge_patches_flat(frame.right, fx, fy, ft,
-                                                psize, pshift, live=fmask)
-    just_pass = cfg.ncc_thresh + 1e-6
-    sim_f = P.dense_gates_flat(l_patches, l_patch_ok, rows, f_patches,
-                               f_patch_ok, fmask, psize, fill=just_pass)
-    # active pairs beyond the flat budget stay alive, just passing
-    sim_full = _scatter_back(torch.full_like(state.ncc, just_pass),
-                             rows, slots, fmask, sim_f)
-    state = state._replace(cmask=state.cmask & (sim_full > cfg.ncc_thresh),
-                           ncc=sim_full)
-    record(state)
+    with span("stereo.recheck"):
+        rows, slots, fmask = _flatten_active(state.cmask,
+                                             cfg.max_refine_pairs)
+        lin = rows * C + slots
+        fx, fy, ft = (t.reshape(-1)[lin]
+                      for t in (state.cx, state.cy, state.ctheta))
+        # K7 samples the live entries only (a prefix of the list); K6 reads
+        # none of the others
+        f_patches, f_patch_ok = P.edge_patches_flat(frame.right, fx, fy, ft,
+                                                    psize, pshift, live=fmask)
+        just_pass = cfg.ncc_thresh + 1e-6
+        sim_f = P.dense_gates_flat(l_patches, l_patch_ok, rows, f_patches,
+                                   f_patch_ok, fmask, psize, fill=just_pass)
+        # active pairs beyond the flat budget stay alive, just passing
+        sim_full = _scatter_back(torch.full_like(state.ncc, just_pass),
+                                 rows, slots, fmask, sim_f)
+        state = state._replace(
+            cmask=state.cmask & (sim_full > cfg.ncc_thresh), ncc=sim_full)
+        record(state)
 
     # ---- stage 12: best-only pick, then the empty-row purge ----
-    best_slot = torch.argmax(torch.where(state.cmask, state.ncc,
-                                         torch.full_like(state.ncc,
-                                                         -float("inf"))), 1)
-    only_best = (torch.arange(C, device=dev)[None, :] == best_slot[:, None])
-    state = state._replace(cmask=state.cmask & only_best)
-    record(state)
-    state = state._replace(row_mask=state.row_mask & state.cmask.any(1))
-    record(state)
+    with span("stereo.pick"):
+        best_slot = torch.argmax(torch.where(
+            state.cmask, state.ncc,
+            torch.full_like(state.ncc, -float("inf"))), 1)
+        only_best = (torch.arange(C, device=dev)[None, :]
+                     == best_slot[:, None])
+        state = state._replace(cmask=state.cmask & only_best)
+        record(state)
+        state = state._replace(row_mask=state.row_mask & state.cmask.any(1))
+        record(state)
 
-    mates = _finalize(state, frame, rig, cfg, l_patches, l_patch_ok, l_desc,
-                      best_slot, desc_kw)
+    with span("stereo.finalize"):
+        mates = _finalize(state, frame, rig, cfg, l_patches, l_patch_ok,
+                          l_desc, best_slot, desc_kw)
     if record_distributions:
         return mates, state, torch.stack(metrics), dists
     return mates, state, torch.stack(metrics)

@@ -30,6 +30,7 @@ from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 TEMPORAL_STAGE_NAMES = (
     "Location Proximity", "Orientation", "NCC", "SIFT",
@@ -119,94 +120,101 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
     dev = kf.left_x.device
     margin = 10.0
 
-    pl, pr, th_l, th_r = _project_kf_points(kf, rel_pose, rig,
-                                            use_gt_gamma=use_gt)
-    in_img = ((pl[:, 0] > margin) & (pl[:, 1] > margin)
-              & (pl[:, 0] < W - margin) & (pl[:, 1] < H - margin)
-              & (pr[:, 0] > margin) & (pr[:, 1] > margin)
-              & (pr[:, 0] < W - margin) & (pr[:, 1] < H - margin))
+    with span("temporal.gather"):
+        pl, pr, th_l, th_r = _project_kf_points(kf, rel_pose, rig,
+                                                use_gt_gamma=use_gt)
+        in_img = ((pl[:, 0] > margin) & (pl[:, 1] > margin)
+                  & (pl[:, 0] < W - margin) & (pl[:, 1] < H - margin)
+                  & (pr[:, 0] > margin) & (pr[:, 1] > margin)
+                  & (pr[:, 0] < W - margin) & (pr[:, 1] < H - margin))
 
-    band_h = 8
-    cf_attrs = torch.stack([cf.left_x, cf.left_y, cf.left_theta,
-                            cf.right_x, cf.right_y, cf.right_theta], -1)
-    lgrid = GRID.build_sorted_grid(cf.left_x, cf.left_y, cf.valid, W, H,
-                                   band_h=band_h, attrs=cf_attrs)
+        band_h = 8
+        cf_attrs = torch.stack([cf.left_x, cf.left_y, cf.left_theta,
+                                cf.right_x, cf.right_y, cf.right_theta], -1)
+        lgrid = GRID.build_sorted_grid(cf.left_x, cf.left_y, cf.valid, W, H,
+                                       band_h=band_h, attrs=cf_attrs)
 
-    # ---- veridical quads: < 2 px both sides + transported orientation ----
-    r_v = cfg.dist_to_gt_thresh_quads + 1.0
-    vwin = int(-(-2 * r_v // band_h)) + 1
-    _, v_at, vmask = GRID.query_sorted_grid_attrs(
-        lgrid, pl[:, 0], pl[:, 1], rx=r_v, ry=r_v, slots_per_band=8,
-        n_band_window=vwin)
-    v_dl = torch.sqrt((v_at[0] - pl[:, 0:1]) ** 2 + (v_at[1] - pl[:, 1:2]) ** 2)
-    v_dr = torch.sqrt((v_at[3] - pr[:, 0:1]) ** 2 + (v_at[4] - pr[:, 1:2]) ** 2)
-    v_ol = geom.orientation_diff_deg(th_l[:, None], v_at[2])
-    v_or = geom.orientation_diff_deg(th_r[:, None], v_at[5])
-    # masked slots are valid entries by the grid query's guarantee
-    vmask = (vmask & (v_dl < cfg.dist_to_gt_thresh_quads)
-             & (v_dr < cfg.dist_to_gt_thresh_quads)
-             & geom.orientation_gate(v_ol, cfg.veridical_orient_thresh_deg)
-             & geom.orientation_gate(v_or, cfg.veridical_orient_thresh_deg))
-    has_verid = vmask.any(1)
-    row_mask = kf.valid & in_img
-    if use_gt:
-        # only KF rows that formed a veridical quad take part
-        row_mask = row_mask & has_verid
+        # ---- veridical quads: < 2 px both sides + transported
+        # orientation ----
+        r_v = cfg.dist_to_gt_thresh_quads + 1.0
+        vwin = int(-(-2 * r_v // band_h)) + 1
+        _, v_at, vmask = GRID.query_sorted_grid_attrs(
+            lgrid, pl[:, 0], pl[:, 1], rx=r_v, ry=r_v, slots_per_band=8,
+            n_band_window=vwin)
+        v_dl = torch.sqrt((v_at[0] - pl[:, 0:1]) ** 2
+                          + (v_at[1] - pl[:, 1:2]) ** 2)
+        v_dr = torch.sqrt((v_at[3] - pr[:, 0:1]) ** 2
+                          + (v_at[4] - pr[:, 1:2]) ** 2)
+        v_ol = geom.orientation_diff_deg(th_l[:, None], v_at[2])
+        v_or = geom.orientation_diff_deg(th_r[:, None], v_at[5])
+        # masked slots are valid entries by the grid query's guarantee
+        v_th = cfg.veridical_orient_thresh_deg
+        vmask = (vmask & (v_dl < cfg.dist_to_gt_thresh_quads)
+                 & (v_dr < cfg.dist_to_gt_thresh_quads)
+                 & geom.orientation_gate(v_ol, v_th)
+                 & geom.orientation_gate(v_or, v_th))
+        has_verid = vmask.any(1)
+        row_mask = kf.valid & in_img
+        if use_gt:
+            # only KF rows that formed a veridical quad take part
+            row_mask = row_mask & has_verid
 
-    # ---- candidate gathering with left AND right box membership; the
-    # evaluation mode always gathers around the KF locations ----
-    if use_gt or cfg.temporal_gather_mode == "reference":
-        r_g, n_slots = cfg.temporal_grid_radius, cfg.quad_gather_slots
-        gl_x, gl_y = kf.left_x, kf.left_y
-        gr_x, gr_y = kf.right_x, kf.right_y
-    else:
-        r_g, n_slots = cfg.temporal_grid_radius_prod, cfg.quad_gather_slots_prod
-        gl_x, gl_y = pl[:, 0], pl[:, 1]
-        gr_x, gr_y = pr[:, 0], pr[:, 1]
-    gwin = int(-(-2 * r_g // band_h)) + 1
-    gidx, g_at, gmask = GRID.query_sorted_grid_attrs(
-        lgrid, gl_x, gl_y, rx=r_g, ry=r_g,
-        slots_per_band=-(-n_slots // gwin), n_band_window=gwin)
-    gmask = (gmask & row_mask[:, None]
-             & (torch.abs(g_at[3] - gr_x[:, None]) <= r_g)
-             & (torch.abs(g_at[4] - gr_y[:, None]) <= r_g))
-    metrics = []
+        # ---- candidate gathering with left AND right box membership; the
+        # evaluation mode always gathers around the KF locations ----
+        if use_gt or cfg.temporal_gather_mode == "reference":
+            r_g, n_slots = cfg.temporal_grid_radius, cfg.quad_gather_slots
+            gl_x, gl_y = kf.left_x, kf.left_y
+            gr_x, gr_y = kf.right_x, kf.right_y
+        else:
+            r_g = cfg.temporal_grid_radius_prod
+            n_slots = cfg.quad_gather_slots_prod
+            gl_x, gl_y = pl[:, 0], pl[:, 1]
+            gr_x, gr_y = pr[:, 0], pr[:, 1]
+        gwin = int(-(-2 * r_g // band_h)) + 1
+        gidx, g_at, gmask = GRID.query_sorted_grid_attrs(
+            lgrid, gl_x, gl_y, rx=r_g, ry=r_g,
+            slots_per_band=-(-n_slots // gwin), n_band_window=gwin)
+        gmask = (gmask & row_mask[:, None]
+                 & (torch.abs(g_at[3] - gr_x[:, None]) <= r_g)
+                 & (torch.abs(g_at[4] - gr_y[:, None]) <= r_g))
+        metrics = []
 
-    def record_raw(mask):
-        if not use_gt:
-            metrics.append(_count_row(mask))
-            return
-        tmp = TemporalQuads(
-            row_mask=row_mask, proj_left=pl, proj_right=pr,
-            proj_theta_l=th_l, proj_theta_r=th_r, has_veridical=has_verid,
-            cf_idx=gidx, lcx=g_at[0], lcy=g_at[1], lct=g_at[2],
-            rcx=g_at[3], rcy=g_at[4], rct=g_at[5], cmask=mask,
-            ncc_l=None, desc_l=None)
-        metrics.append(_quad_metrics(tmp, kf.is_tp,
-                                     cfg.dist_to_gt_thresh_quads))
+        def record_raw(mask):
+            if not use_gt:
+                metrics.append(_count_row(mask))
+                return
+            tmp = TemporalQuads(
+                row_mask=row_mask, proj_left=pl, proj_right=pr,
+                proj_theta_l=th_l, proj_theta_r=th_r, has_veridical=has_verid,
+                cf_idx=gidx, lcx=g_at[0], lcy=g_at[1], lct=g_at[2],
+                rcx=g_at[3], rcy=g_at[4], rct=g_at[5], cmask=mask,
+                ncc_l=None, desc_l=None)
+            metrics.append(_quad_metrics(tmp, kf.is_tp,
+                                         cfg.dist_to_gt_thresh_quads))
 
-    record_raw(gmask)
+        record_raw(gmask)
 
-    g_ol = geom.orientation_diff_deg(kf.left_theta[:, None], g_at[2])
-    g_or = geom.orientation_diff_deg(kf.right_theta[:, None], g_at[5])
-    gmask = (gmask & geom.orientation_gate(g_ol, cfg.temporal_orient_thresh_deg)
-             & geom.orientation_gate(g_or, cfg.temporal_orient_thresh_deg))
-    record_raw(gmask)
+        g_ol = geom.orientation_diff_deg(kf.left_theta[:, None], g_at[2])
+        g_or = geom.orientation_diff_deg(kf.right_theta[:, None], g_at[5])
+        g_th = cfg.temporal_orient_thresh_deg
+        gmask = (gmask & geom.orientation_gate(g_ol, g_th)
+                 & geom.orientation_gate(g_or, g_th))
+        record_raw(gmask)
 
-    # compaction priority: distance to the predicted projection, both sides
-    d_l = torch.hypot(g_at[0] - pl[:, None, 0], g_at[1] - pl[:, None, 1])
-    d_r = torch.hypot(g_at[3] - pr[:, None, 0], g_at[4] - pr[:, None, 1])
-    cf_idx, c_at, cmask = GRID.compact_candidates_attrs(
-        gidx, g_at, gmask, Cq, priority=d_l + d_r)
-    # the scores a slot holds until a gate computes it (failing both gates)
-    fill_ncc, fill_dist = -1.0, 900.0
-    q = TemporalQuads(
-        row_mask=row_mask, proj_left=pl, proj_right=pr, proj_theta_l=th_l,
-        proj_theta_r=th_r, has_veridical=has_verid, cf_idx=cf_idx,
-        lcx=c_at[0], lcy=c_at[1], lct=c_at[2],
-        rcx=c_at[3], rcy=c_at[4], rct=c_at[5], cmask=cmask,
-        ncc_l=torch.full((M, Cq), fill_ncc, device=dev),
-        desc_l=torch.full((M, Cq), fill_dist, device=dev))
+        # compaction priority: distance to the predicted projection, both sides
+        d_l = torch.hypot(g_at[0] - pl[:, None, 0], g_at[1] - pl[:, None, 1])
+        d_r = torch.hypot(g_at[3] - pr[:, None, 0], g_at[4] - pr[:, None, 1])
+        cf_idx, c_at, cmask = GRID.compact_candidates_attrs(
+            gidx, g_at, gmask, Cq, priority=d_l + d_r)
+        # the scores a slot holds until a gate computes it (failing both gates)
+        fill_ncc, fill_dist = -1.0, 900.0
+        q = TemporalQuads(
+            row_mask=row_mask, proj_left=pl, proj_right=pr, proj_theta_l=th_l,
+            proj_theta_r=th_r, has_veridical=has_verid, cf_idx=cf_idx,
+            lcx=c_at[0], lcy=c_at[1], lct=c_at[2],
+            rcx=c_at[3], rcy=c_at[4], rct=c_at[5], cmask=cmask,
+            ncc_l=torch.full((M, Cq), fill_ncc, device=dev),
+            desc_l=torch.full((M, Cq), fill_dist, device=dev))
 
     def record(qq):
         metrics.append(_quad_metrics(qq, kf.is_tp, cfg.dist_to_gt_thresh_quads)
@@ -214,75 +222,86 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
 
     # ---- NCC + descriptor gates, both sides, on the live slots (K6) ----
     # CF patches are rounded to bf16, as the reference ships them
-    cf_patches = torch.cat([cf.left_patches, cf.right_patches],
-                           -1).to(torch.bfloat16)
-    cf_ok = torch.cat([cf.left_patch_ok, cf.right_patch_ok], -1)
-    cf_desc = torch.cat([cf.left_desc, cf.right_desc], -1)
-    sim_l, sim_r, dl, dr = P.dense_gates_temporal(
-        kf.left_patches, kf.left_patch_ok, kf.right_patches,
-        kf.right_patch_ok, kf.left_desc, kf.right_desc, cf_patches, cf_ok,
-        cf_desc, q.cf_idx, q.cmask, cfg.patch_size, fill_ncc=fill_ncc,
-        fill_dist=fill_dist)
-    q = q._replace(cmask=q.cmask & (sim_l > cfg.temporal_ncc_thresh)
-                   & (sim_r > cfg.temporal_ncc_thresh), ncc_l=sim_l)
-    record(q)
-    q = q._replace(cmask=q.cmask & (dl < cfg.temporal_sift_thresh)
-                   & (dr < cfg.temporal_sift_thresh), desc_l=dl)
-    record(q)
+    with span("temporal.gates"):
+        cf_patches = torch.cat([cf.left_patches, cf.right_patches],
+                               -1).to(torch.bfloat16)
+        cf_ok = torch.cat([cf.left_patch_ok, cf.right_patch_ok], -1)
+        cf_desc = torch.cat([cf.left_desc, cf.right_desc], -1)
+        sim_l, sim_r, dl, dr = P.dense_gates_temporal(
+            kf.left_patches, kf.left_patch_ok, kf.right_patches,
+            kf.right_patch_ok, kf.left_desc, kf.right_desc, cf_patches, cf_ok,
+            cf_desc, q.cf_idx, q.cmask, cfg.patch_size, fill_ncc=fill_ncc,
+            fill_dist=fill_dist)
+        q = q._replace(cmask=q.cmask & (sim_l > cfg.temporal_ncc_thresh)
+                       & (sim_r > cfg.temporal_ncc_thresh), ncc_l=sim_l)
+        record(q)
+        q = q._replace(cmask=q.cmask & (dl < cfg.temporal_sift_thresh)
+                       & (dr < cfg.temporal_sift_thresh), desc_l=dl)
+        record(q)
 
     # ---- BNB on left-side scores ----
-    q = q._replace(cmask=_bnb_keep(q.ncc_l, q.cmask, cfg.temporal_bnb_ratio,
-                                   higher_better=True))
-    record(q)
-    q = q._replace(cmask=_bnb_keep(q.desc_l, q.cmask, cfg.temporal_bnb_ratio,
-                                   higher_better=False))
-    record(q)
+    with span("temporal.bnb"):
+        q = q._replace(cmask=_bnb_keep(
+            q.ncc_l, q.cmask, cfg.temporal_bnb_ratio, higher_better=True))
+        record(q)
+        q = q._replace(cmask=_bnb_keep(
+            q.desc_l, q.cmask, cfg.temporal_bnb_ratio, higher_better=False))
+        record(q)
 
     # ---- 2-DoF photometric refinement, both sides ----
-    rows, slots, fmask = _flatten_active(q.cmask, cfg.max_refine_pairs)
-    kf_pack = torch.stack([kf.left_x, kf.left_y, kf.left_theta,
-                           kf.right_x, kf.right_y, kf.right_theta], -1)[rows]
-    c_pack = torch.stack([q.lcx, q.lcy, q.lct, q.rcx, q.rcy, q.rct],
-                         -1).reshape(M * Cq, 6)[rows * Cq + slots]
+    with span("temporal.refine"):
+        rows, slots, fmask = _flatten_active(q.cmask, cfg.max_refine_pairs)
+        kf_pack = torch.stack([kf.left_x, kf.left_y, kf.left_theta,
+                               kf.right_x, kf.right_y, kf.right_theta],
+                              -1)[rows]
+        c_pack = torch.stack([q.lcx, q.lcy, q.lct, q.rcx, q.rcy, q.rct],
+                             -1).reshape(M * Cq, 6)[rows * Cq + slots]
 
-    maps4 = GN.interleave_pair_maps(
-        (cf_frame.left, cf_frame.left_gx, cf_frame.left_gy),
-        (cf_frame.right, cf_frame.right_gx, cf_frame.right_gy))
-    res_l, res_r = GN.refine_2dof_pair_batch(
-        kf_frame.left, kf_frame.right, maps4, kf_pack, c_pack, fmask,
-        patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter, tol=cfg.gn_tol,
-        huber_delta=cfg.temporal_huber_delta, tile=cfg.gn_tile,
-        chunk=cfg.gn_chunk, phase1_iters=cfg.gn_phase1_iters,
-        phase2_budget=cfg.gn_phase2_budget)
-    # refined location = kf - d, applied per side where that side is valid
-    new_lx = torch.where(res_l.valid, kf_pack[:, 0] - res_l.delta[:, 0], c_pack[:, 0])
-    new_ly = torch.where(res_l.valid, kf_pack[:, 1] - res_l.delta[:, 1], c_pack[:, 1])
-    new_rx = torch.where(res_r.valid, kf_pack[:, 3] - res_r.delta[:, 0], c_pack[:, 3])
-    new_ry = torch.where(res_r.valid, kf_pack[:, 4] - res_r.delta[:, 1], c_pack[:, 4])
-    q = q._replace(lcx=_scatter_back(q.lcx, rows, slots, fmask, new_lx),
-                   lcy=_scatter_back(q.lcy, rows, slots, fmask, new_ly),
-                   rcx=_scatter_back(q.rcx, rows, slots, fmask, new_rx),
-                   rcy=_scatter_back(q.rcy, rows, slots, fmask, new_ry))
-    record(q)
+        maps4 = GN.interleave_pair_maps(
+            (cf_frame.left, cf_frame.left_gx, cf_frame.left_gy),
+            (cf_frame.right, cf_frame.right_gx, cf_frame.right_gy))
+        res_l, res_r = GN.refine_2dof_pair_batch(
+            kf_frame.left, kf_frame.right, maps4, kf_pack, c_pack, fmask,
+            patch_size=cfg.patch_size, max_iter=cfg.gn_max_iter,
+            tol=cfg.gn_tol,
+            huber_delta=cfg.temporal_huber_delta, tile=cfg.gn_tile,
+            chunk=cfg.gn_chunk, phase1_iters=cfg.gn_phase1_iters,
+            phase2_budget=cfg.gn_phase2_budget)
+        # refined location = kf - d, applied per side where that side is
+        # valid
+        new_lx = torch.where(res_l.valid, kf_pack[:, 0] - res_l.delta[:, 0],
+                             c_pack[:, 0])
+        new_ly = torch.where(res_l.valid, kf_pack[:, 1] - res_l.delta[:, 1],
+                             c_pack[:, 1])
+        new_rx = torch.where(res_r.valid, kf_pack[:, 3] - res_r.delta[:, 0],
+                             c_pack[:, 3])
+        new_ry = torch.where(res_r.valid, kf_pack[:, 4] - res_r.delta[:, 1],
+                             c_pack[:, 4])
+        q = q._replace(lcx=_scatter_back(q.lcx, rows, slots, fmask, new_lx),
+                       lcy=_scatter_back(q.lcy, rows, slots, fmask, new_ly),
+                       rcx=_scatter_back(q.rcx, rows, slots, fmask, new_rx),
+                       rcy=_scatter_back(q.rcy, rows, slots, fmask, new_ry))
+        record(q)
 
     # ---- clustering of the left centres, right centres averaged ----
-    cl = CL.cluster_edges(q.lcx, q.lcy, q.lct, q.cmask,
-                          dist_thresh=cfg.cluster_dist_thresh,
-                          orient_thresh_deg=cfg.cluster_orient_thresh,
-                          by_orientation=True,
-                          gauss_sigma=cfg.cluster_orient_gauss_sigma,
-                          max_cluster_size=cfg.max_cluster_size)
-    Mw = cl.members.to(torch.float32)
-    cnt = torch.clamp(Mw.sum(-1), min=1.0)
-    avg_rx = torch.einsum("mrj,mj->mr", Mw, q.rcx) / cnt
-    avg_ry = torch.einsum("mrj,mj->mr", Mw, q.rcy) / cnt
-    avg_rt = torch.einsum("mrj,mj->mr", Mw, q.rct) / cnt
-    q = q._replace(lcx=torch.where(cl.mask, cl.x, q.lcx),
-                   lcy=torch.where(cl.mask, cl.y, q.lcy),
-                   lct=torch.where(cl.mask, cl.theta, q.lct),
-                   rcx=torch.where(cl.mask, avg_rx, q.rcx),
-                   rcy=torch.where(cl.mask, avg_ry, q.rcy),
-                   rct=torch.where(cl.mask, avg_rt, q.rct),
-                   cmask=cl.mask)
-    record(q)
+    with span("temporal.cluster"):
+        cl = CL.cluster_edges(q.lcx, q.lcy, q.lct, q.cmask,
+                              dist_thresh=cfg.cluster_dist_thresh,
+                              orient_thresh_deg=cfg.cluster_orient_thresh,
+                              by_orientation=True,
+                              gauss_sigma=cfg.cluster_orient_gauss_sigma,
+                              max_cluster_size=cfg.max_cluster_size)
+        Mw = cl.members.to(torch.float32)
+        cnt = torch.clamp(Mw.sum(-1), min=1.0)
+        avg_rx = torch.einsum("mrj,mj->mr", Mw, q.rcx) / cnt
+        avg_ry = torch.einsum("mrj,mj->mr", Mw, q.rcy) / cnt
+        avg_rt = torch.einsum("mrj,mj->mr", Mw, q.rct) / cnt
+        q = q._replace(lcx=torch.where(cl.mask, cl.x, q.lcx),
+                       lcy=torch.where(cl.mask, cl.y, q.lcy),
+                       lct=torch.where(cl.mask, cl.theta, q.lct),
+                       rcx=torch.where(cl.mask, avg_rx, q.rcx),
+                       rcy=torch.where(cl.mask, avg_ry, q.rcy),
+                       rct=torch.where(cl.mask, avg_rt, q.rct),
+                       cmask=cl.mask)
+        record(q)
     return q, torch.stack(metrics)

@@ -29,6 +29,7 @@ from edge_based_visual_odometry_tpu_torch import geometry as geom
 from edge_based_visual_odometry_tpu_torch.models import ba as BA
 from edge_based_visual_odometry_tpu_torch.models.types import (
     resolve_device, to_numpy as _np)
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -148,42 +149,48 @@ class WindowBA:
         (poses_w2c list of geom.Pose, info dict) or None if the window is
         too small. info includes host-assembly wall time so longseq runs
         can assert bookkeeping < solve cost."""
-        t_host0 = time.perf_counter()
-        if self.mesh is None:
-            prob = self._assemble()
-        else:
-            group = self.mesh.get_group()
-            box = [self._assemble() if self.mesh.get_local_rank() == 0
-                   else None]
-            dist.broadcast_object_list(
-                box, src=dist.get_global_rank(group, 0), group=group,
-                device=self.device if dist.get_backend(group) == "nccl"
-                else None)
-            prob = box[0]
-        if prob is None:
-            return None
-        Kn, L, n_obs = prob["Kn"], prob["L"], prob["n_obs"]
-        if len(self.kf_poses) != Kn:
-            raise RuntimeError(
-                f"WindowBA: this rank's window holds {len(self.kf_poses)} "
-                f"keyframes, the mesh's rank 0 solves {Kn}: the ranks' VO "
-                f"loops are out of step")
-        reduce = (None if self.mesh is None
-                  else BA.all_reduce_sum(self.mesh.get_group()))
-        arrays = self._local_block(prob)
-        host_assembly_s = time.perf_counter() - t_host0
-        ba_prob = self._problem(prob, *arrays)
+        with span("ba.assemble"):
+            t_host0 = time.perf_counter()
+            if self.mesh is None:
+                prob = self._assemble()
+            else:
+                group = self.mesh.get_group()
+                box = [self._assemble() if self.mesh.get_local_rank() == 0
+                       else None]
+                dist.broadcast_object_list(
+                    box, src=dist.get_global_rank(group, 0), group=group,
+                    device=self.device if dist.get_backend(group) == "nccl"
+                    else None)
+                prob = box[0]
+            if prob is None:
+                return None
+            Kn, L, n_obs = prob["Kn"], prob["L"], prob["n_obs"]
+            if len(self.kf_poses) != Kn:
+                raise RuntimeError(
+                    f"WindowBA: this rank's window holds {len(self.kf_poses)} "
+                    f"keyframes, the mesh's rank 0 solves {Kn}: the ranks' VO "
+                    f"loops are out of step")
+            reduce = (None if self.mesh is None
+                      else BA.all_reduce_sum(self.mesh.get_group()))
+            arrays = self._local_block(prob)
+            host_assembly_s = time.perf_counter() - t_host0
+            ba_prob = self._problem(prob, *arrays)
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_solve0 = time.perf_counter()
-        res = BA.run_ba(ba_prob, n_iters=self.cfg.n_iters,
-                        damping=self.cfg.damping, huber=self.cfg.huber,
-                        reduce=reduce)
-        # one transfer of the result to the host; it also ends the solve
-        out = torch.cat([res.R[:Kn].reshape(-1), res.t[:Kn].reshape(-1),
-                         res.cost_history]).cpu().numpy()
-        solve_s = time.perf_counter() - t_solve0
+        with span("ba.solve"):
+            with span("wait.ba_sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            t_solve0 = time.perf_counter()
+            res = BA.run_ba(ba_prob, n_iters=self.cfg.n_iters,
+                            damping=self.cfg.damping, huber=self.cfg.huber,
+                            reduce=reduce)
+            # one transfer of the result to the host; it also ends the
+            # solve
+            packed = torch.cat([res.R[:Kn].reshape(-1),
+                                res.t[:Kn].reshape(-1), res.cost_history])
+            with span("wait.ba_readback"):
+                out = packed.cpu().numpy()
+            solve_s = time.perf_counter() - t_solve0
         R_all = out[:9 * Kn].reshape(Kn, 3, 3)
         t_all = out[9 * Kn:12 * Kn].reshape(Kn, 3)
         cost = out[12 * Kn:]

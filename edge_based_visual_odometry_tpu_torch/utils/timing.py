@@ -6,6 +6,16 @@ unless the device is waited for. `StageTimer.timed` synchronises the CUDA
 device before and after the stage, so stage times are end-to-end wall
 clock (including device execution). For kernel-level breakdowns use
 `device_trace` (torch.profiler).
+
+`span(name)` names a stage of the frame path on the profiler's clock
+without waiting for the device: while spans are on (`spans_on()`, and
+for the length of `device_trace`) it enters
+`torch.profiler.record_function("vo/" + name)`, so a trace holds each
+span as a `user_annotation` event beside the kernels it launched; while
+they are off (the default) it returns one shared no-op context, which
+makes no dispatcher call, reads no clock and allocates nothing. Spans
+nest on the calling thread. A span named `wait.<what>` marks a place
+where the program deliberately blocks on the device.
 """
 
 from __future__ import annotations
@@ -14,9 +24,35 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+SPAN_PREFIX = "vo/"
+_spans = False          # whether span() records; see spans_on()
+_NO_SPAN = contextlib.nullcontext()     # what span() returns while off
+
+
+def span(name: str, args=None):
+    """A context naming a stage `vo/<name>` in the profiler's trace while
+    spans are on; `args` (e.g. the frame index) goes with the annotation
+    as a string. While spans are off, the shared no-op context."""
+    if not _spans:
+        return _NO_SPAN
+    return torch.profiler.record_function(
+        SPAN_PREFIX + name, None if args is None else str(args))
+
+
+@contextlib.contextmanager
+def spans_on():
+    """Spans on inside the block; the state before it is restored on
+    exit."""
+    global _spans
+    prev, _spans = _spans, True
+    try:
+        yield
+    finally:
+        _spans = prev
 
 
 def _sync():
@@ -61,18 +97,29 @@ class StageTimer:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """torch.profiler trace of the CPU and, where it exists, the CUDA
-    device; the Chrome trace is written to <log_dir>/trace.json. Yields
-    the profiler (read `key_averages()` after the block)."""
+    device, with the program's spans on (`span`); the Chrome trace is
+    written to <log_dir>/trace.json. Yields the profiler (read
+    `device_ops(prof, ...)` after the block)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=acts)
-    prof.start()
-    try:
-        yield prof
-    finally:
-        _sync()
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with spans_on():
+        prof.start()
+        try:
+            yield prof
+        finally:
+            _sync()
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_ops(prof, device_type):
+    """The rows of `prof.key_averages()` that ran on `device_type` (a
+    `torch.autograd.DeviceType`): ops, kernels and copies, without the
+    spans' annotations, each of which covers the ops beneath it and
+    would count them again."""
+    return [e for e in prof.key_averages()
+            if e.device_type == device_type and not e.is_user_annotation]

@@ -11,7 +11,8 @@ kernels K8 and K9 on the card, their plain twins on the CPU
 `_final_count`), so that a run can time them apart.
 
 Hypothesis draws come from a `torch.Generator` seeded with the frame's
-seed; the reference's threefry draws cannot be reproduced, so
+seed (or from the generator a caller passes, seeded alike: a CUDA
+graph's own); the reference's threefry draws cannot be reproduced, so
 `estimate_pose` also takes the draws (idx1, idx2) directly.
 """
 
@@ -124,16 +125,18 @@ def _pose_from_pair(g1, gb1, t1, tb1, g2, gb2, t2, tb2):
 
 
 def _sample_quad_pairs(pq: PoseQuads, cfg: VOConfig, seed: int, K: int,
-                       idx=None):
+                       idx=None, generator=None):
     """Top-rank pair draws: uniform over the top ransac_top_rank_percentage
     of the PROSAC order, idx2 != idx1. `idx` = (idx1, idx2) overrides the
-    generator."""
+    generator; `generator`, seeded by the caller, replaces a fresh one
+    seeded with `seed`."""
     if idx is None:
         dev = pq.gamma.device
         top_n = torch.clamp(
             (cfg.ransac_top_rank_percentage * pq.n_valid).to(torch.int64),
             min=2)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        gen = (torch.Generator(device=dev).manual_seed(int(seed))
+               if generator is None else generator)
         idx1 = torch.randint(0, 1 << 30, (K,), generator=gen, device=dev) % top_n
         idx2 = torch.randint(0, 1 << 30, (K,), generator=gen, device=dev) % top_n
         idx2 = torch.where(idx2 == idx1, (idx2 + 1) % top_n, idx2)
@@ -200,11 +203,12 @@ def _pick(a, i):
 
 
 def _hypotheses(pq: PoseQuads, rig: RigArrays, cfg: VOConfig, seed: int,
-                idx=None):
+                idx=None, generator=None):
     """The K drawn pairs' gate, closed-form poses and projections K R,
     K t."""
     _, _, samples = _sample_quad_pairs(pq, cfg, seed,
-                                       cfg.ransac_max_iterations, idx)
+                                       cfg.ransac_max_iterations, idx,
+                                       generator)
     c1, c2, c3, c4 = _constraint_gates(samples, cfg)
     R, t = _pose_from_pair(*samples)
     KG = torch.einsum("ij,kjl->kil", rig.K_left, R).contiguous()
@@ -255,14 +259,17 @@ def _final_count(Rr, tr, pq: PoseQuads, K_left, thr: float):
 
 
 def estimate_pose(pq: PoseQuads, rig: RigArrays, cfg: VOConfig,
-                  seed: Optional[int] = None, idx=None) -> RansacResult:
+                  seed: Optional[int] = None, idx=None,
+                  generator=None) -> RansacResult:
     """Vectorized constraint-gated RANSAC; `idx` = (idx1, idx2) injects
-    the hypothesis draws. On the card the counts run in K8 and the
-    refinement's normal equations in K9 (`ops/pose.py`)."""
+    the hypothesis draws, `generator` (seeded by the caller) draws them
+    in place of a fresh generator seeded with `seed`. On the card the
+    counts run in K8 and the refinement's normal equations in K9
+    (`ops/pose.py`)."""
     K = cfg.ransac_max_iterations
     seed = cfg.ransac_seed if seed is None else seed
     with span("pose.hypotheses"):
-        gate, R, t, KG, Kt = _hypotheses(pq, rig, cfg, seed, idx)
+        gate, R, t, KG, Kt = _hypotheses(pq, rig, cfg, seed, idx, generator)
     thr = cfg.ransac_max_reproj_error
 
     with span("pose.score"):

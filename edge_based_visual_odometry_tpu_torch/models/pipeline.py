@@ -8,6 +8,12 @@ Port of `edge_based_visual_odometry_tpu/models/pipeline.py`:
                   `match_stereo`
   temporal step = `match_temporal` + `lift_quads` + `estimate_pose`
 
+On a CUDA device each step replays a CUDA graph of its body from its
+third call on (`utils/graphs.py`): the same kernels and ops, launched by
+one replay in place of the host's ~1,900 launches a frame. Calls with GT
+maps, GT poses, recorded distributions or a GN capture run eagerly, as
+every call does on the CPU.
+
 `VOPipeline.run_frame` carries the keyframe state across frames with the
 `reference`, `every_frame` and `adaptive` keyframe policies, a bootstrap
 temporal step (reference-mode gather window) until the first successful
@@ -37,6 +43,7 @@ from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import toed
+from edge_based_visual_odometry_tpu_torch.utils.graphs import StepGraph
 from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 
@@ -90,7 +97,10 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
     first. `has_gt`: the step takes the GT disparity map and the
     non-occlusion mask and supervises the cascade with them. A setting the
     reference refuses, or on CUDA one outside a kernel's range, raises
-    here (`check_config`)."""
+    here (`check_config`). On CUDA, without `has_gt` and
+    `record_distributions`, a call without `gn_capture` replays the
+    step's graph (`StepGraph`) once it is captured: the images are copied
+    to the graph's static inputs, the rest is the graph."""
     device = resolve_device(device)
     check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
@@ -106,16 +116,23 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
     def step(left, right, disparity=None, occlusion=None,
              gn_capture=None) -> FrameResult:
         with span("stereo_step"):
-            return _step(left, right, disparity, occlusion, gn_capture)
+            if graph is None or gn_capture is not None:
+                return _step(left, right, disparity, occlusion, gn_capture)
+            return graph(((_tensor(left), _tensor(right)),))
 
     def _step(left, right, disparity, occlusion, gn_capture):
         with span("upload"):
             # a host image's copy is pageable: the host waits for it
             with span("wait.upload"):
-                imgs = [a.to(device) if torch.is_tensor(a) else
-                        torch.as_tensor(np.asarray(a)).to(device)
-                        for a in (left, right)]
+                imgs = [_tensor(a).to(device) for a in (left, right)]
             both = torch.stack(imgs).to(dtype=torch.float32)
+        return _match(both, disparity, occlusion, gn_capture)
+
+    def _graph_body(imgs, seed, generator):
+        return _match(torch.stack(imgs).to(dtype=torch.float32), None, None,
+                      None)
+
+    def _match(both, disparity, occlusion, gn_capture):
         if dists[0] is not None or dists[1] is not None:
             both = torch.stack([
                 img if d is None else IMG.undistort(img, K, d)
@@ -145,7 +162,15 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                            distributions=out[3] if record_distributions
                            else None)
 
+    graph = (StepGraph("stereo_step", _graph_body, device,
+                       load_spans=("upload", "wait.upload"))
+             if device.type == "cuda" and not has_gt
+             and not record_distributions else None)
     return step
+
+
+def _tensor(a) -> torch.Tensor:
+    return a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
 
 
 def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
@@ -154,7 +179,10 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
     TemporalResult; rel_R/rel_t is the KF->CF pose used for quad
     prediction (GT with `use_gt`, predicted in production). A setting the
     reference refuses, or on CUDA one outside a kernel's range, raises
-    here (`check_config`)."""
+    here (`check_config`). On CUDA, without `use_gt`, a call whose tensors
+    are all on the device replays the step's graph (`StepGraph`) once it
+    is captured; its RANSAC draws come from the graph's generator, seeded
+    with `seed` before each replay, and equal the eager step's."""
     device = resolve_device(device)
     check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
@@ -162,20 +190,34 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
     def step(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t,
              seed) -> TemporalResult:
         with span("temporal_step"):
-            with span("match_temporal"):
-                quads, tmetrics = TM.match_temporal(
-                    kf_mates, cf_mates, kf_frame, cf_frame,
-                    geom.Pose(rel_R, rel_t), rig_a, cfg, use_gt=use_gt)
-            with span("lift_quads"):
-                pq = MT.lift_quads(kf_mates, quads, rig_a, cfg,
-                                   use_gt=use_gt)
-            with span("estimate_pose"):
-                res = MT.estimate_pose(pq, rig_a, cfg, seed)
+            if graph is None:
+                return _body(kf_mates, kf_frame, cf_mates, cf_frame, rel_R,
+                             rel_t, seed)
+            return graph(((kf_mates, kf_frame), (cf_mates, cf_frame),
+                          (rel_R, rel_t)), seed)
+
+    def _body(kf_mates, kf_frame, cf_mates, cf_frame, rel_R, rel_t, seed,
+              generator=None):
+        with span("match_temporal"):
+            quads, tmetrics = TM.match_temporal(
+                kf_mates, cf_mates, kf_frame, cf_frame,
+                geom.Pose(rel_R, rel_t), rig_a, cfg, use_gt=use_gt)
+        with span("lift_quads"):
+            pq = MT.lift_quads(kf_mates, quads, rig_a, cfg, use_gt=use_gt)
+        with span("estimate_pose"):
+            res = (MT.estimate_pose(pq, rig_a, cfg, seed) if generator is None
+                   else MT.estimate_pose(pq, rig_a, cfg, seed,
+                                         generator=generator))
         return TemporalResult(quads=quads, temporal_metrics=tmetrics,
                               R=res.R, t=res.t, inlier_count=res.inlier_count,
                               inlier_ratio=res.inlier_ratio,
                               n_quads=res.n_quads, success=res.success)
 
+    def _graph_body(kf, cf, rel, seed, generator):
+        return _body(*kf, *cf, *rel, seed, generator)
+
+    graph = (StepGraph("temporal_step", _graph_body, device, generator=True)
+             if device.type == "cuda" and not use_gt else None)
     return step
 
 

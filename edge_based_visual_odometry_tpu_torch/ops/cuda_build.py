@@ -10,7 +10,9 @@ builds anew; deleting the directory forces a rebuild.
 
 Every kernel wrapper adds one to its entry of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels; a replay of a step's CUDA graph adds what
+the wrappers counted while it was captured (`utils/graphs.py`), and
+`GRAPH_STEPS` counts how each step's calls ran.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
             "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
             "dense_gates": 0, "edge_patches": 0, "ransac_score": 0,
             "pose_gn": 0}
+# step -> its calls on a CUDA device since the last reset_launch_counts():
+# captured into a graph, replayed from it, or run eagerly
+GRAPH_STEPS = {step: {"capture": 0, "replay": 0, "eager": 0}
+               for step in ("stereo_step", "temporal_step")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,6 +105,9 @@ _lib = None
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in GRAPH_STEPS.values():
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -58,23 +58,33 @@ def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
                cfg: VOConfig, use_gt: bool = False) -> PoseQuads:
     """Lift every (KF mate, candidate) pair and order PROSAC style by
     (row candidate count, flat position), keeping the first
-    max_pose_quads. The LEFT K inverse serves both cameras, as in the
-    reference. With `use_gt` only true-positive KF mates take part and
-    `is_veridical` flags the quads within the GT distance on both sides."""
+    max_pose_quads. With `use_gt` only true-positive KF mates take part
+    and `is_veridical` flags the quads within the GT distance on both
+    sides.
+
+    Each camera's points and tangents are lifted with its own K inverse:
+    the left image's with `K_left_inv`, the right image's with
+    `K_right_inv`. This departs on purpose from the reference and the JAX
+    package, which lift both images with the left K. That is wrong on any
+    rig whose cameras differ: on EuRoC's (cx 367.2 against 380.0 px, cy
+    248.4 against 255.2) the right rays are off by 12.8 px in x and 6.9 px
+    in y, as large as the disparities themselves, and RANSAC keeps a
+    fraction of the quads. Where both cameras share one K the two lifts
+    are the same computation."""
     M, Cq = quads.cmask.shape
-    Kinv = rig.K_left_inv
-    g1l = geom.pixel_to_ray(Kinv, torch.stack([kf.left_x, kf.left_y], -1))
-    g1r = geom.pixel_to_ray(Kinv, torch.stack([kf.right_x, kf.right_y], -1))
+    Kl, Kr = rig.K_left_inv, rig.K_right_inv
+    g1l = geom.pixel_to_ray(Kl, torch.stack([kf.left_x, kf.left_y], -1))
+    g1r = geom.pixel_to_ray(Kr, torch.stack([kf.right_x, kf.right_y], -1))
     Gamma = geom.backproject_two_rays(rig.R21, rig.T21, g1l, g1r)
     T = geom.reconstruct_3d_tangent(
-        rig.R21, g1l, g1r, geom.theta_to_ray_tangent(Kinv, kf.left_theta),
-        geom.theta_to_ray_tangent(Kinv, kf.right_theta))
-    gbl = geom.pixel_to_ray(Kinv, torch.stack([quads.lcx, quads.lcy], -1))
-    gbr = geom.pixel_to_ray(Kinv, torch.stack([quads.rcx, quads.rcy], -1))
+        rig.R21, g1l, g1r, geom.theta_to_ray_tangent(Kl, kf.left_theta),
+        geom.theta_to_ray_tangent(Kr, kf.right_theta))
+    gbl = geom.pixel_to_ray(Kl, torch.stack([quads.lcx, quads.lcy], -1))
+    gbr = geom.pixel_to_ray(Kr, torch.stack([quads.rcx, quads.rcy], -1))
     Gamma_bar = geom.backproject_two_rays(rig.R21, rig.T21, gbl, gbr)
     T_bar = geom.reconstruct_3d_tangent(
-        rig.R21, gbl, gbr, geom.theta_to_ray_tangent(Kinv, quads.lct),
-        geom.theta_to_ray_tangent(Kinv, quads.rct))
+        rig.R21, gbl, gbr, geom.theta_to_ray_tangent(Kl, quads.lct),
+        geom.theta_to_ray_tangent(Kr, quads.rct))
 
     row_ok = quads.row_mask & kf.is_tp if use_gt else quads.row_mask
     mask = quads.cmask & row_ok[:, None]

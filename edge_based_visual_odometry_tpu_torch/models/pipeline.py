@@ -134,10 +134,12 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
 
     def _match(both, disparity, occlusion, gn_capture):
         if dists[0] is not None or dists[1] is not None:
-            both = torch.stack([
-                img if d is None else IMG.undistort(img, K, d)
-                for img, K, d in zip(both, (rig_a.K_left, rig_a.K_right),
-                                     dists)])
+            with span("undistort"):
+                both = torch.stack([
+                    img if d is None else IMG.undistort(img, K, d)
+                    for img, K, d in zip(both,
+                                         (rig_a.K_left, rig_a.K_right),
+                                         dists)])
         with span("sobel"):
             gxs, gys = IMG.sobel_gradients(both)
             frame = FrameData(left=both[0], right=both[1],

@@ -167,7 +167,20 @@ def _scatter_back(template, rows, slots, fmask, values):
 
 def derive_gather_band(rig, cfg: VOConfig) -> float:
     """Vertical half-height (px) of the stage-1 gather window from the rig's
-    epipolar geometry (host-side numpy; same bound as the reference)."""
+    epipolar geometry (host-side numpy).
+
+    The window is centred on the foot of the perpendicular from the left
+    edge p to its epipolar line (`match_stereo`), not on p. A valid
+    candidate q lies within eps of the line and within D of p, so on the
+    line's chord through that disk: |q_y - foot_y| <= sqrt(D^2 - d^2) |t_y|
+    + eps, with d the chord's nearest distance to p and t the line's unit
+    direction; the bound is maximised over a grid of image points. The JAX
+    package centres the window on p, and so adds delta |n_y| (delta the
+    distance of p from its line): on a rig whose cameras differ, as
+    EuRoC's (cy 248.4 against 255.2 px), that is ~14 px, and the window's
+    2 bands become 6 that share the same `gather_slots`, so that a dense
+    band drops its candidates beyond the first 26 by x, the true mate
+    among them. Rectified rigs keep the reference's 4 px either way."""
     F = np.asarray(rig.F21, np.float64)
     W, H = rig.left.width, rig.left.height
     D = float(cfg.max_disparity)
@@ -180,11 +193,10 @@ def derive_gather_band(rig, cfg: VOConfig) -> float:
     norm = np.hypot(a, b)
     ok = norm > 1e-12
     a, b, c, norm = a[ok], b[ok], c[ok], norm[ok]
-    ny = np.abs(b) / norm
     ty = np.abs(a) / norm
     delta = np.minimum(np.abs(a * pts[ok, 0] + b * pts[ok, 1] + c) / norm, D)
     d_near = np.maximum(delta - eps, 0.0)
-    dy = delta * ny + np.sqrt(np.maximum(D * D - d_near * d_near, 0.0)) * ty
+    dy = np.sqrt(np.maximum(D * D - d_near * d_near, 0.0)) * ty
     ry = (float(dy.max()) if dy.size else 0.0) + eps + 1.0
     return float(max(4.0, min(ry, H / 2.0)))
 
@@ -286,10 +298,15 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                      & (v_dth < cfg.gt_pair_orient_tol))
             row_mask = row_mask & vmask.any(1)
 
-        # ---- stages 1-3 on the raw gather window, then compact to C ----
+        # ---- stages 1-3 on the raw gather window, then compact to C;
+        # the window is centred in y on the foot of the perpendicular from
+        # the left edge to its epipolar line (`derive_gather_band`) ----
+        a, b, c = epi.unbind(-1)
+        qy = ly - b * (a * lx + b * ly + c) / (a * a + b * b)
+        qy = torch.where(torch.isfinite(qy), qy, ly)
         n_band_window = int(-(-2.0 * gather_ry // 8)) + 1
         gidx, g_attrs, gmask = GRID.query_sorted_grid_attrs(
-            rgrid, lx, ly, rx=cfg.max_disparity + 1.5, ry=gather_ry,
+            rgrid, lx, qy, rx=cfg.max_disparity + 1.5, ry=gather_ry,
             slots_per_band=max(8, cfg.gather_slots // n_band_window),
             n_band_window=n_band_window)
         g_x, g_y, g_t = g_attrs[0], g_attrs[1], g_attrs[2]

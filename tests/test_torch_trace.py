@@ -20,6 +20,7 @@ read runs) and a 2-keyframe windowed BA, and one `WindowBA.run` on
 
 import collections
 import contextlib
+import dataclasses
 import json
 import re
 from pathlib import Path
@@ -50,6 +51,8 @@ ROW = re.compile(r"^\| `vo/([a-z_.]+)` \| (?:`vo/([a-z_.]+)`|-) \|")
 TEMPORAL_ONLY = ("temporal_step", "match_temporal", "lift_quads",
                  "estimate_pose", "temporal.", "pose.", "wait.success",
                  "wait.keyframe", "window_ba", "ba.", "wait.ba_")
+# spans that run only on a rig with a distorted camera
+DISTORTED_ONLY = ("undistort",)
 
 
 def documented():
@@ -158,7 +161,8 @@ def test_every_span_once_a_frame_where_its_stage_runs(runs):
         names = [s[0] for s in inside]
         assert len(names) == len(set(names)), f"frame {k}: {names}"
         expected = {n for n in doc
-                    if k > 0 or not n.startswith(TEMPORAL_ONLY)}
+                    if (k > 0 or not n.startswith(TEMPORAL_ONLY))
+                    and not n.startswith(DISTORTED_ONLY)}
         assert set(names) == expected, (
             k, sorted(set(names) ^ expected))
 
@@ -177,6 +181,28 @@ def test_outputs_bit_identical_with_spans_on_and_off(runs):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_undistort_span_once_a_frame_on_a_distorted_rig(tmp_path):
+    """A rig with a distorted camera records `vo/undistort` once a frame,
+    inside `vo/stereo_step`; the undistorted rig above records none."""
+    rig = S.default_rig(120, 160)
+    cam = dataclasses.replace(rig.left, distortion=(
+        -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05))
+    pipe = PL.VOPipeline(dataclasses.replace(rig, left=cam, right=cam),
+                         VOConfig(**SMALL), device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with T.spans_on():
+            for left, right in _frames()[:2]:
+                pipe.run_frame(left, right)
+    spans = _trace_spans(prof, tmp_path, "distorted")
+    parents = _parents(spans)
+    frames = [s for s in spans if s[0] == "frame"]
+    undistort = [i for i, s in enumerate(spans) if s[0] == "undistort"]
+    assert len(frames) == 2 and len(undistort) == 2
+    for f, i in zip(frames, undistort):
+        assert f[1] <= spans[i][1] and spans[i][2] <= f[2]
+        assert spans[parents[i]][0] == "stereo_step"
 
 
 def test_spans_off_call_nothing(runs, monkeypatch):

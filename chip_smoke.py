@@ -323,6 +323,17 @@ def k1_work(B, H, W):
     return flops, px * 4 + K1_OUTPUTS_PER_PIXEL * px * 4
 
 
+def nms_work(B, H, W, kept, max_edges):
+    """(flops, bytes) of TOED's NMS and compaction (csrc/
+    toed_nms_compact.cu) on B images of H x W: bytes, Ix, Iy and |grad|
+    of each field pixel once, the orientation of each kept pixel, and the
+    B EdgeLists (4 floats and a flag a slot, the counts). Its arithmetic
+    (comparisons, and the fit only on pixels past NMS) is not counted:
+    the bytes bound it."""
+    return 0, (B * 4 * H * W * 3 * 4 + sum(kept) * 4
+               + B * max_edges * (4 * 4 + 1) + B * 4)
+
+
 def k2_work(iters_run, active, patch_size, H, W):
     """(flops, bytes) of one K2 launch over B lanes: `iters_run` the
     iterations each lane ran in it, `active` the lanes it refined."""
@@ -2625,6 +2636,58 @@ def main():
         max_abs_err=err_k1, plain_ms=ms_p1, library_ms=None, **w1,
         values_not_bit_equal=n_diff))
 
+    # ---- 3b. NMS, subpixel fit and compaction vs the twin, bit for bit,
+    # on K1's fields of frame 0; alone, and in place (detect_edges) ----
+    nms_kw = dict(grad_mag_min=cfg.toed_grad_mag_min, border=cfg.toed_border)
+    for M in (cfg.max_edges, 1024):
+        e_k = toed.nms_compact_cuda(*out_k, H, W, M, **nms_kw)
+        e_p = toed.nms_compact_plain(*out_k, H, W, M, **nms_kw)
+        torch.cuda.synchronize()
+        for b, (ek, ep) in enumerate(zip(e_k, e_p)):
+            for nm, x, y in zip(ek._fields, ek, ep):
+                same = x.dtype == y.dtype and x.shape == y.shape and (
+                    f32_differ(x, y) == 0 if x.dtype == torch.float32
+                    else bool(torch.equal(x, y)))
+                check(same, f"toed_nms_compact (max_edges {M}) image {b}: "
+                            f"{nm} differs from the twin")
+        if M == cfg.max_edges:
+            kept = [int(e.count) for e in e_k]
+    check(min(kept) > 1024 and max(kept) < cfg.max_edges,
+          f"toed_nms_compact: {kept} edges do not exercise both capacities")
+
+    def nms():
+        return toed.nms_compact_cuda(*out_k, H, W, cfg.max_edges, **nms_kw)
+
+    def detect():
+        return toed.detect_edges(
+            img, cfg.toed_kernel_size, cfg.toed_sigma, cfg.toed_grad_mag_min,
+            cfg.max_edges, cfg.toed_border)
+
+    ms_n = cuda_ms(nms, 50)
+    ms_n_alone = graph_ms(nms, 50)
+    ms_np = cuda_ms(lambda: toed.nms_compact_plain(
+        *out_k, H, W, cfg.max_edges, **nms_kw), 10)
+    ms_det, ms_det_alone = cuda_ms(detect, 50), graph_ms(detect, 50)
+    ms_k1_alone = graph_ms(lambda: toed.toed_gradient_field_cuda(img), 50)
+    wn = launch_bound(ms_n, ms_n_alone,
+                      *nms_work(2, H, W, kept, cfg.max_edges))
+    print(f"toed_nms_compact (2x{2 * H}x{2 * W} fields, {kept} edges): "
+          f"bit-equal to the twin at max_edges {cfg.max_edges} and 1024; "
+          f"launches alone {ms_n_alone:.4f} ms, with the wrapper "
+          f"{ms_n:.4f} ms, plain {ms_np:.3f} ms; bound "
+          f"{wn['bound_ms'] * 1e3:.1f} us ({wn['bound_by']}: "
+          f"{wn['bytes']} B), {wn['pct_of_bound']:.1f}% of bound; in place: "
+          f"detect_edges {ms_det_alone:.4f} ms alone ({ms_det:.4f} with "
+          f"the wrappers), K1 alone {ms_k1_alone:.4f} ms")
+    kernels.append(dict(
+        name="toed_nms_compact", route="cuda",
+        source="edge_based_visual_odometry_tpu_torch/csrc/toed_nms_compact.cu",
+        replaces="none (XLA ops: edge_based_visual_odometry_tpu/ops/toed.py "
+                 "toed_nms_subpixel, extract_edges)",
+        max_abs_err=0.0, plain_ms=ms_np, library_ms=None, **wn,
+        detect_edges_ms=ms_det, detect_edges_launch_ms=ms_det_alone,
+        k1_launch_ms=ms_k1_alone))
+
     # ---- 4. K2 vs plain, bit for bit, on the real stage-9 input ----
     cap = {}
     PL.build_stereo_step(seq.rig, cfg, dev)(*frames[0], gn_capture=cap)
@@ -2854,6 +2917,10 @@ def main():
         n_mates = int(fr.mates.count)
         rows = fr.stereo_metrics[:, 1].cpu().numpy().astype(int).tolist()
         check(dl["toed_gradient_field"] >= 1, f"frame {k}: K1 not launched")
+        # NMS and compaction: the count and the write pass, both images
+        check(dl["toed_nms_compact"] == 2 * dl["toed_gradient_field"],
+              f"frame {k}: toed_nms_compact launched "
+              f"{dl['toed_nms_compact']} times")
         check(dl["refine_along_epipolar"] >= 1, f"frame {k}: K2 not launched")
         # K3: two launches a temporal step, each for both sides
         check(dl["refine_2dof"] == (2 if k else 0),
@@ -3055,7 +3122,8 @@ def main():
             "per_side_form_ms", "watch_ms", "phase2_lanes", "occupancy",
             "against_jax_max_ulps", "against_jax_max_err", "calls",
             "launch_ms", "pct_of_bound_with_wrapper", "by_patch_size",
-            "estimate_pose_ms", "estimate_pose_on_twins_ms")}
+            "estimate_pose_ms", "estimate_pose_on_twins_ms",
+            "detect_edges_ms", "detect_edges_launch_ms", "k1_launch_ms")}
         for kd in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ module here keeps its counterpart's module path, function names and
 tensor contracts (shapes, capacities, masks, orderings), so that each
 stage can be held against the reference on the same numpy inputs.
 
-Plain tensor code is PyTorch. Seven kernels of the frame are
-hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use:
+Plain tensor code is PyTorch. Ten kernels of the frame are hand-written
+CUDA for Hopper (`csrc/`), built with nvcc at first use:
 
   - K1 `ops.toed.toed_gradient_field`             (TOED filter bank)
+  - `ops.toed.nms_compact`                        (TOED's NMS, subpixel
+                                                   fit and compaction)
   - K2 `ops.gauss_newton.refine_along_epipolar`   (1-DoF epipolar GN)
   - K3 `ops.gauss_newton.refine_2dof_pair_batch`  (2-DoF KF->CF GN)
   - K4 `ops.clustering.cluster_edges`             (edge clustering)
@@ -16,6 +18,8 @@ hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use:
   - K6 `ops.patches.dense_gates_stereo`, `dense_gates_flat`,
     `dense_gates_temporal`                        (NCC + descriptor gates)
   - K7 `ops.patches.edge_patches`                 (two-side edge patches)
+  - K8 `ops.pose.ransac_counts`                   (RANSAC inlier counts)
+  - K9 `ops.pose.pose_gn_normal_equations`        (pose GN sums)
 
 Each has a plain-PyTorch twin in the same module; a CPU tensor goes to
 the twin, a CUDA tensor to the kernel.

@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
             "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
             "dense_gates": 0, "edge_patches": 0, "ransac_score": 0,
-            "pose_gn": 0}
+            "pose_gn": 0, "toed_nms_compact": 0}
 # step -> its calls on a CUDA device since the last reset_launch_counts():
 # captured into a graph, replayed from it, or run eagerly
 GRAPH_STEPS = {step: {"capture": 0, "replay": 0, "eager": 0}
@@ -52,6 +52,10 @@ _GN_ARGS = [_P] * 2 + [_I] * 2 + [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P] * 7
 # C entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
     "toed_gradient_field_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # Ix, Iy, |grad|, orientation, B, H, W, border, grad_mag_min,
+    # max_edges, row_count, cols, x, y, theta, mag, ok, count, stream
+    "toed_nms_compact_launch": ([_P] * 4 + [_I] * 4 + [_F, _I]
+                                + [_P] * 9),
     "refine_along_epipolar_launch": _GN_ARGS,
     # K3's sides entry: images, H, W, packs, d0, nsides, active, B ..
     # stride, tol, huber, cum_done, budget, counter, outputs, stream

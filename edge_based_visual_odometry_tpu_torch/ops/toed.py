@@ -12,6 +12,11 @@ Port of `edge_based_visual_odometry_tpu/ops/toed.py`:
      parabola subpixel fit.
   3. `extract_edges` - raster-order compaction into a fixed-capacity
      EdgeList: the first `max_edges` entries of nonzero(keep).
+
+`nms_compact` runs 2-3 over each image of a (B, 2H, 2W) field: on a CUDA
+tensor the hand-written kernel `csrc/toed_nms_compact.cu`, which gives
+the plain twin's EdgeLists bit for bit; on a CPU tensor the twin
+`nms_compact_plain` (`toed_nms_subpixel`, then `extract_edges` per image).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import filters
 
 __all__ = ["EdgeList", "toed_gradient_field", "toed_gradient_field_plain",
-           "toed_nms_subpixel", "extract_edges", "detect_edges"]
+           "toed_nms_subpixel", "extract_edges", "nms_compact",
+           "nms_compact_plain", "detect_edges"]
 
 HALO = 9                     # the CUDA kernel's taps: 2 HALO + 1 = 19
 KERNEL_TAPS = 2 * HALO + 1
@@ -240,17 +246,91 @@ def extract_edges(subpix_x, subpix_y, subpix_mag, orient, valid,
                     slot_ok, count)
 
 
+def nms_compact_plain(Ix, Iy, grad_mag, orient, img_height: int,
+                      img_width: int, max_edges: int,
+                      grad_mag_min: float = 2.0, border: int = 10):
+    """The plain twin of `csrc/toed_nms_compact.cu`: NMS, the subpixel fit
+    and the raster-order compaction of each image of (B, 2H, 2W) fields;
+    a list of B EdgeLists."""
+    sx, sy, smag, valid = toed_nms_subpixel(Ix, Iy, grad_mag, orient,
+                                            border=border,
+                                            grad_mag_min=grad_mag_min)
+    return [extract_edges(sx[b], sy[b], smag[b], orient[b], valid[b],
+                          img_height, img_width, max_edges, border)
+            for b in range(grad_mag.shape[0])]
+
+
+def nms_compact_cuda(Ix, Iy, grad_mag, orient, img_height: int,
+                     img_width: int, max_edges: int,
+                     grad_mag_min: float = 2.0, border: int = 10):
+    """The hand-written kernel (csrc/toed_nms_compact.cu); same contract
+    as `nms_compact_plain`, for float32 CUDA tensors. Two launches (a
+    count pass and a write pass); the EdgeLists view rows of (B,
+    max_edges) outputs."""
+    if not grad_mag.is_cuda:
+        raise ValueError(f"nms_compact_cuda: needs a CUDA tensor, got one "
+                         f"on {grad_mag.device}")
+    if grad_mag.dim() != 3:
+        raise ValueError(f"grad_mag: expected (B, 2H, 2W), got "
+                         f"{tuple(grad_mag.shape)}")
+    B, fh, fw = grad_mag.shape
+    H, W, M = int(img_height), int(img_width), int(max_edges)
+    if (fh, fw) != (2 * H, 2 * W):
+        raise ValueError(f"fields of {(fh, fw)} for a {H} x {W} image: "
+                         f"expected {(2 * H, 2 * W)}")
+    if M < 0:
+        raise ValueError(f"max_edges = {M}: must be >= 0")
+    dev = grad_mag.device
+    for name, t in (("Ix", Ix), ("Iy", Iy), ("grad_mag", grad_mag),
+                    ("orient", orient)):
+        CB.require(t, name, torch.float32, (B, fh, fw), dev)
+    if B == 0:
+        return []
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    row_count = empty(B, fh, dtype=torch.int32)
+    cols = empty(B, fh, fw, dtype=torch.int32)
+    x, y, theta, mag = (empty(B, M) for _ in range(4))
+    ok = empty(B, M, dtype=torch.bool)
+    count = empty(B, dtype=torch.int32)
+    lib = CB.lib()
+    with torch.cuda.device(dev):
+        err = lib.toed_nms_compact_launch(
+            Ix.data_ptr(), Iy.data_ptr(), grad_mag.data_ptr(),
+            orient.data_ptr(), B, H, W, int(border), float(grad_mag_min), M,
+            *(t.data_ptr() for t in (row_count, cols, x, y, theta, mag, ok,
+                                     count)),
+            CB.stream_ptr(dev))
+    CB.check(err, "toed_nms_compact")
+    CB.LAUNCHES["toed_nms_compact"] += 2
+    return [EdgeList(x[b], y[b], theta[b], mag[b], ok[b], count[b])
+            for b in range(B)]
+
+
+def nms_compact(Ix, Iy, grad_mag, orient, img_height: int, img_width: int,
+                max_edges: int, grad_mag_min: float = 2.0, border: int = 10):
+    """Each image's EdgeList from (B, 2H, 2W) fields: the CUDA kernel for
+    CUDA tensors, the plain twin for CPU tensors."""
+    if grad_mag.is_cuda:
+        return nms_compact_cuda(Ix, Iy, grad_mag, orient, img_height,
+                                img_width, max_edges, grad_mag_min, border)
+    if grad_mag.device.type != "cpu":
+        raise ValueError(f"nms_compact: unsupported device {grad_mag.device}")
+    return nms_compact_plain(Ix, Iy, grad_mag, orient, img_height, img_width,
+                             max_edges, grad_mag_min, border)
+
+
 def detect_edges(img: torch.Tensor, kernel_size: int = 17, sigma: float = 2.0,
                  grad_mag_min: float = 2.0, max_edges: int = 32768,
                  border: int = 10):
     """Image(s) -> EdgeList. img (H, W) gives one EdgeList; (B, H, W) gives
-    a list of B EdgeLists, sharing one launch of the gradient field."""
+    a list of B EdgeLists, sharing one launch of the gradient field and one
+    of NMS and compaction."""
     H, W = img.shape[-2:]
-    Ix, Iy, mag, orient = toed_gradient_field(img, kernel_size, sigma)
-    sx, sy, smag, valid = toed_nms_subpixel(Ix, Iy, mag, orient, border=border,
-                                            grad_mag_min=grad_mag_min)
+    fields = toed_gradient_field(img, kernel_size, sigma)
     if img.dim() == 2:
-        return extract_edges(sx, sy, smag, orient, valid, H, W, max_edges,
-                             border)
-    return [extract_edges(sx[b], sy[b], smag[b], orient[b], valid[b], H, W,
-                          max_edges, border) for b in range(img.shape[0])]
+        return nms_compact(*(f[None] for f in fields), H, W, max_edges,
+                           grad_mag_min, border)[0]
+    return nms_compact(*fields, H, W, max_edges, grad_mag_min, border)

@@ -1,12 +1,14 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K3's both-sides launch, K4,
-K5, K6's three entries, K7, K8, K9) against their plain-PyTorch twins, on
-the card, and the paths through them (the pipeline, BA, the CLI, the NCCL
-pair step and its production memory). Every test here needs a CUDA
+"""The hand-written CUDA kernels (K1, TOED's NMS and compaction, K2, K3,
+K3's both-sides launch, K4, K5, K6's three entries, K7, K8, K9) against
+their plain-PyTorch twins, on the card, and the paths through them (the
+pipeline, BA, the CLI, the NCCL pair step and its production memory). Every test here needs a CUDA
 device (marker `gpu`) and skips without one. The file imports no JAX, so it also
 runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
 from tests import gate_cases as GC
 from tests import pose_cases as PC
+from tests import toed_nms_cases as NC
 
 pytestmark = pytest.mark.gpu
 
@@ -132,6 +135,175 @@ def test_toed_kernel_taps_follow_sigma(dev, frame):
         torch.cuda.synchronize()
         for a, b in zip(out[:3], ref[:3]):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+
+
+# ---- TOED's NMS, subpixel fit and compaction (csrc/toed_nms_compact.cu)
+def _edges_bit_equal(got, ref, what=""):
+    """Two EdgeLists equal bit for bit, every field and the count."""
+    for nm, a, b in zip(TY.EdgeList._fields, got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, nm)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (what, nm)
+
+
+@pytest.fixture(scope="module")
+def bench_frames():
+    """Three frames of each benchmark cell's scene (KITTI's street,
+    EuRoC's room, as the cameras give them), host uint8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vo_bench.harness import spec as SPEC
+    from vo_bench.scene import render as RS
+    out = {}
+    for name in ("kitti.every_frame", "euroc.every_frame"):
+        cell = SPEC.load_cell(name)
+        rig = RS.Rig.from_config(cell.config["rig"])
+        sc = RS.make_scene(rig, cell.scene, torch.device("cuda", 0), 3)
+        out[name] = [(sc.left[k], sc.right[k]) for k in range(3)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _synthetic_pair(h, w):
+    f = S.make_sequence(1, h, w).frames[0]
+    return np.stack([_u8(f.left), _u8(f.right)]).astype(np.float32)
+
+
+def _both(pair, dev):
+    return torch.stack([torch.as_tensor(a) for a in pair]).to(
+        dev, torch.float32)
+
+
+@pytest.mark.parametrize("max_edges", [32768, 1024])
+@pytest.mark.parametrize("cell", ["kitti.every_frame", "euroc.every_frame"])
+def test_toed_nms_kernel_matches_twin_on_bench_frames(dev, bench_frames,
+                                                      cell, max_edges):
+    """Both images in one call, at VOConfig()'s capacity (no overflow)
+    and at 1,024 (overflow): the kernel's EdgeLists are the twin's, run on
+    the same card, bit for bit."""
+    cfg = VOConfig()
+    both = _both(bench_frames[cell][0], dev)
+    H, W = both.shape[-2:]
+    fields = T.toed_gradient_field_cuda(both)
+    kw = dict(grad_mag_min=cfg.toed_grad_mag_min, border=cfg.toed_border)
+    got = T.nms_compact_cuda(*fields, H, W, max_edges, **kw)
+    ref = T.nms_compact_plain(*fields, H, W, max_edges, **kw)
+    full = T.nms_compact_plain(*fields, H, W, 1 << 20, **kw)
+    for b in range(2):
+        _edges_bit_equal(got[b], ref[b], f"{cell} image {b}")
+        assert 1024 < int(full[b].count) < 32768
+
+
+@pytest.mark.parametrize("border,grad_mag_min,max_edges", [
+    (10, 2.0, 4096), (0, 2.0, 4096), (3, 0.5, 4096), (10, 2.0, 50),
+    (10, 2.0, 0)])
+@pytest.mark.parametrize("shape", [(1, 45, 67), (2, 65, 91), (2, 121, 163),
+                                   (1, 377, 1243)])
+def test_toed_nms_kernel_odd_sizes(dev, shape, border, grad_mag_min,
+                                   max_edges):
+    """Odd heights and widths (fields not a multiple of the 512-column
+    chunk), the border at 0 (zero padding at the field's edge), another
+    threshold, overflow and no capacity at all."""
+    B, h, w = shape
+    both = torch.from_numpy(_synthetic_pair(h, w)[:B]).to(dev)
+    fields = T.toed_gradient_field_cuda(both)
+    kw = dict(grad_mag_min=grad_mag_min, border=border)
+    got = T.nms_compact_cuda(*fields, h, w, max_edges, **kw)
+    ref = T.nms_compact_plain(*fields, h, w, max_edges, **kw)
+    assert len(got) == B
+    for b in range(B):
+        _edges_bit_equal(got[b], ref[b], f"image {b}")
+
+
+@pytest.mark.parametrize("name", sorted(NC.LIMIT_CASES))
+def test_toed_nms_kernel_at_the_limits(dev, name):
+    """The CPU contract's cases (`tests/toed_nms_cases.py`): pixels
+    exactly at the border and `grad_mag_min` limits, and on the field's
+    edge; the kernel keeps what the twin keeps, on the card and on the
+    CPU."""
+    fields, (H, W, border, gmin), kept = NC.limit_fields(name)
+    cpu = [torch.from_numpy(f) for f in fields]
+    on = [t.to(dev) for t in cpu]
+    got = T.nms_compact_cuda(*on, H, W, 16, grad_mag_min=gmin, border=border)
+    _edges_bit_equal(got[0], T.nms_compact_plain(
+        *on, H, W, 16, grad_mag_min=gmin, border=border)[0])
+    _edges_bit_equal([t.cpu() for t in got[0]], T.nms_compact_plain(
+        *cpu, H, W, 16, grad_mag_min=gmin, border=border)[0])
+    assert int(got[0].count) == len(kept)
+
+
+def test_toed_nms_kernel_zero_and_nan_fields(dev):
+    """Zero |grad| (the twin's normal is 0 / 0) and NaN fields keep
+    nothing and write no NaN; a NaN orientation is read only at kept
+    pixels."""
+    z = torch.zeros((2, 40, 60), device=dev)
+    nan = torch.full_like(z, float("nan"))
+    for fields, gmin in (((z, z, z, nan), -1.0), ((nan, nan, nan, nan), 2.0),
+                         ((nan, z, z, z), -1.0)):
+        got = T.nms_compact_cuda(*fields, 20, 30, 128, grad_mag_min=gmin,
+                                 border=0)
+        ref = T.nms_compact_plain(*fields, 20, 30, 128, grad_mag_min=gmin,
+                                  border=0)
+        for a, b in zip(got, ref):
+            _edges_bit_equal(a, b)
+            assert int(a.count) == 0
+            assert all(bool(torch.isfinite(t).all()) for t in a[:4])
+
+
+def test_toed_nms_kernel_in_a_step_graph_equals_eager(dev, bench_frames):
+    """detect_edges as the body of a step graph (`utils/graphs.StepGraph`):
+    its warm-up, capture and replays give the eager EdgeLists bit for bit,
+    and each replay counts the kernel's two launches."""
+    from edge_based_visual_odometry_tpu_torch.utils import graphs as G
+
+    def body(imgs, seed, generator):
+        return tuple(T.detect_edges(torch.stack(imgs).to(torch.float32)))
+
+    graph = G.StepGraph("stereo_step", body, dev)
+    frames = bench_frames["kitti.every_frame"]
+    CB.reset_launch_counts()
+    for k in (0, 1, 2, 0, 1):
+        imgs = tuple(torch.as_tensor(a).to(dev) for a in frames[k])
+        got = graph((imgs,))
+        eager = T.detect_edges(torch.stack(imgs).to(torch.float32))
+        for b in range(2):
+            _edges_bit_equal(got[b], eager[b], f"call {k} image {b}")
+    assert CB.GRAPH_STEPS["stereo_step"] == dict(capture=1, replay=3,
+                                                 eager=1)
+    # 5 graph calls and 5 eager calls, two launches each
+    assert CB.LAUNCHES["toed_nms_compact"] == 20
+    assert CB.LAUNCHES["toed_gradient_field"] == 10
+
+
+def test_toed_nms_dispatch_and_operands(dev, frame):
+    """detect_edges on the card launches K1 once and the NMS kernel's two
+    passes once, for both images; the wrapper refuses operands it does
+    not take."""
+    x = torch.from_numpy(np.stack(frame[:2]).astype(np.float32)).to(dev)
+    before = dict(CB.LAUNCHES)
+    got = T.detect_edges(x, max_edges=4096)
+    assert CB.LAUNCHES["toed_gradient_field"] == before[
+        "toed_gradient_field"] + 1
+    assert CB.LAUNCHES["toed_nms_compact"] == before["toed_nms_compact"] + 2
+    fields = T.toed_gradient_field_cuda(x)
+    ref = T.nms_compact_plain(*fields, 120, 160, 4096)
+    for a, b in zip(got, ref):
+        _edges_bit_equal(a, b)
+    one = T.detect_edges(x[0], max_edges=4096)
+    _edges_bit_equal(one, ref[0])
+    f = list(fields)
+    with pytest.raises(ValueError):
+        T.nms_compact_cuda(*f[:3], f[3].double(), 120, 160, 64)
+    with pytest.raises(ValueError):
+        T.nms_compact_cuda(f[0][:1], *f[1:], 120, 160, 64)
+    with pytest.raises(ValueError):
+        T.nms_compact_cuda(*f, 121, 160, 64)
+    with pytest.raises(ValueError):
+        T.nms_compact_cuda(f[0].transpose(1, 2).contiguous().transpose(1, 2),
+                           *f[1:], 120, 160, 64)
+    with pytest.raises(ValueError):
+        T.nms_compact_cuda(*f, 120, 160, -1)
 
 
 def _border_lanes(rng, B, H, W):

@@ -90,17 +90,16 @@ def check_config(cfg: VOConfig, device: torch.device):
 def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                       has_gt: bool = False,
                       record_distributions: bool = False):
-    """fn(left, right[, disparity, occlusion][, gn_capture]) ->
-    FrameResult; images (H, W) numpy or tensors on any device, uint8 or
-    float. A camera
-    with non-zero distortion coefficients is undistorted on the device
-    first. `has_gt`: the step takes the GT disparity map and the
-    non-occlusion mask and supervises the cascade with them. A setting the
-    reference refuses, or on CUDA one outside a kernel's range, raises
-    here (`check_config`). On CUDA, without `has_gt` and
-    `record_distributions`, a call without `gn_capture` replays the
-    step's graph (`StepGraph`) once it is captured: the images are copied
-    to the graph's static inputs, the rest is the graph."""
+    """fn(left, right[, disparity, occlusion]) -> FrameResult; images
+    (H, W) numpy or tensors on any device, uint8 or float. A camera with
+    non-zero distortion coefficients is undistorted on the device first.
+    `has_gt`: the step takes the GT disparity map and the non-occlusion
+    mask and supervises the cascade with them. A setting the reference
+    refuses, or on CUDA one outside a kernel's range, raises here
+    (`check_config`). On CUDA, without `has_gt` and
+    `record_distributions`, a call replays the step's graph (`StepGraph`)
+    once it is captured: the images are copied to the graph's static
+    inputs, the rest is the graph."""
     device = resolve_device(device)
     check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
@@ -113,26 +112,24 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
         return torch.as_tensor(np.asarray(a)).to(device=device,
                                                  dtype=torch.float32)
 
-    def step(left, right, disparity=None, occlusion=None,
-             gn_capture=None) -> FrameResult:
+    def step(left, right, disparity=None, occlusion=None) -> FrameResult:
         with span("stereo_step"):
-            if graph is None or gn_capture is not None:
-                return _step(left, right, disparity, occlusion, gn_capture)
+            if graph is None:
+                return _step(left, right, disparity, occlusion)
             return graph(((_tensor(left), _tensor(right)),))
 
-    def _step(left, right, disparity, occlusion, gn_capture):
+    def _step(left, right, disparity, occlusion):
         with span("upload"):
             # a host image's copy is pageable: the host waits for it
             with span("wait.upload"):
                 imgs = [_tensor(a).to(device) for a in (left, right)]
             both = torch.stack(imgs).to(dtype=torch.float32)
-        return _match(both, disparity, occlusion, gn_capture)
+        return _match(both, disparity, occlusion)
 
     def _graph_body(imgs, seed, generator):
-        return _match(torch.stack(imgs).to(dtype=torch.float32), None, None,
-                      None)
+        return _match(torch.stack(imgs).to(dtype=torch.float32), None, None)
 
-    def _match(both, disparity, occlusion, gn_capture):
+    def _match(both, disparity, occlusion):
         if dists[0] is not None or dists[1] is not None:
             with span("undistort"):
                 both = torch.stack([
@@ -157,8 +154,7 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                 occlusion_map=(to_dev(occlusion)
                                if has_gt and occlusion is not None else None),
                 gather_ry=gather_ry,
-                record_distributions=record_distributions,
-                gn_capture=gn_capture)
+                record_distributions=record_distributions)
         return FrameResult(frame=frame, mates=out[0], stereo_metrics=out[2],
                            n_left_edges=led.count, n_right_edges=red.count,
                            distributions=out[3] if record_distributions

@@ -212,8 +212,7 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                  frame: FrameData, rig: RigArrays, cfg: VOConfig,
                  disparity_map: Optional[torch.Tensor] = None,
                  occlusion_map: Optional[torch.Tensor] = None,
-                 gather_ry: float = 4.0, record_distributions: bool = False,
-                 gn_capture: Optional[dict] = None):
+                 gather_ry: float = 4.0, record_distributions: bool = False):
     """Run the full stereo cascade.
 
     `disparity_map` (H, W): GT left disparity; switches on the supervision
@@ -227,9 +226,7 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     ambiguity distributions, '<filter>' -> (values (N, C), is_gt (N, C),
     mask (N, C)) taken before the gate, '<stage>_ambiguity' -> (counts
     (N,), row_mask (N,)), '<stage>_state' -> StereoState snapshots and
-    'right_edges_xyt', which `utils/debug_io` writes out.
-    `gn_capture`: if a dict is given, the stage-9 GN input (the flat pair
-    list handed to `refine_along_epipolar_batch`) is stored in it."""
+    'right_edges_xyt', which `utils/debug_io` writes out."""
     has_gt = disparity_map is not None
     N = cfg.max_edges
     C = cfg.max_candidates
@@ -454,8 +451,6 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
                      tile=cfg.gn_tile, chunk=cfg.gn_chunk, active=fmask,
                      phase1_iters=cfg.gn_phase1_iters,
                      phase2_budget=cfg.gn_phase2_budget)
-        if gn_capture is not None:
-            gn_capture.update(args=gn_args, kwargs=gn_kw)
         res = GN.refine_along_epipolar_batch(*gn_args, **gn_kw)
         # the shift applies unconditionally (the cascade keeps refined
         # validity for statistics only)

@@ -4,7 +4,7 @@
 seed) to `tests/data/k4_jax_reference.npz`: x, y, theta (float32), mask,
 label (int32) and members, one array a case and output, so that a machine
 without JAX can hold K4's output on the card against them
-(`tests/test_torch_cuda.py`, `chip_smoke.py` phase 6c).
+(`tests/test_torch_cuda.py`).
 
     JAX_PLATFORMS=cpu python scripts/k4_jax_reference.py
 

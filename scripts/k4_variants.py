@@ -9,11 +9,11 @@ prepared once; forms in turns, in rounds.
 Needs a CUDA device and nvcc (sm_90a). Builds into build/k4_variants/.
 Input: the two `cluster_edges` calls (stereo, temporal) of frame 2 of
 make_sequence(3, 376, 1241), rounded to uint8, through
-VOPipeline(VOConfig()), the operands `chip_smoke.py` phase 6c times.
+VOPipeline(VOConfig()), the operands `chip_smoke.py` times.
 Each form says whether its output equals the twin's bit for bit; the
 forms marked "(timing only)" compute something else. Last, per call, the
 wrapper `cluster_edges_cuda` (which allocates the outputs, checks the
-operands and launches) as `chip_smoke.py` phase 6c times it: its time a
+operands and launches) as `chip_smoke.py` times it: its time a
 call on the card (CUDA events) and on the host (enqueueing only).
 """
 

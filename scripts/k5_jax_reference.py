@@ -3,7 +3,7 @@
 `tests/descriptor_cases.py` (64 edges, seed 0) to
 `tests/data/k5_jax_reference.npz`, as bf16 bit patterns (uint16, one
 array a case), so that a machine without JAX can hold K5's output on the
-card against them (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 6d).
+card against them (`tests/test_torch_cuda.py`).
 
     JAX_PLATFORMS=cpu python scripts/k5_jax_reference.py
 

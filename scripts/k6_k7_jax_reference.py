@@ -2,7 +2,7 @@
 """Write the JAX package's dense gates and edge patches on every case of
 `tests/gate_cases.py` to `tests/data/k6_k7_jax_reference.npz`, so that a
 machine without JAX can hold K6's and K7's outputs on the card against
-them (`tests/test_torch_cuda.py`, `chip_smoke.py` phases 6e and 6f):
+them (`tests/test_torch_cuda.py`):
   - `stereo/<case>/dist` and `stereo/<case>/ncc` (N, C): JAX's
     `min_cross_distance_dot` and `ncc4` on every slot of the stereo case
     (the flat case's pairs are the same slots);

@@ -16,7 +16,7 @@ Needs a CUDA device and nvcc (sm_90a). Builds into build/k6_variants/.
 Input: frame 2's three K6 calls (stages 4-5 and stage 11 of its stereo
 step, its temporal step) of make_sequence(3, 376, 1241), rounded to
 uint8, through VOPipeline(VOConfig()), the operands `chip_smoke.py`
-phase 6e times. Each form says whether its outputs equal the twins' bit
+times. Each form says whether its outputs equal the twins' bit
 for bit; the forms marked "(timing only)" compute something else.
 """
 

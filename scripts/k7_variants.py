@@ -13,7 +13,7 @@ Needs a CUDA device and nvcc (sm_90a). Builds into build/k7_variants/.
 Input: the four `edge_patches` calls of frame 2's stereo step of
 make_sequence(3, 376, 1241), rounded to uint8, through
 VOPipeline(VOConfig()) (left edges, right edges, stage 11's centres with
-its live mask, the final mates), the operands `chip_smoke.py` phase 6f
+its live mask, the final mates), the operands `chip_smoke.py`
 times. Each form says whether its outputs equal the twin's bit for bit
 (on the live edges).
 """

@@ -1,7 +1,9 @@
 """Seeded numpy inputs for `cluster_edges`: the cases the port's CPU tests
 hold against JAX and its `gpu` tests hold K4 against the twin with. No
 JAX or torch here: `case(name, N, C)` returns float32 x, y, theta (N, C),
-a bool mask (N, C) and the keyword arguments."""
+a bool mask (N, C) and the keyword arguments; `f32_ulps` and
+`K4_JAX_ULPS` are the tolerance the twin and K4 are held to against
+JAX's outputs."""
 
 import numpy as np
 
@@ -119,3 +121,26 @@ def case(name, N, C, seed=0):
     f32 = np.float32
     return (x.astype(f32), y.astype(f32), th.astype(f32),
             np.asarray(mask, bool), kw)
+
+
+# K4 against the JAX package's outputs: x, y and theta within this many
+# float32 ulps of max(|a|, |b|, 1). The twin (and K4) adds in ascending
+# slot order, XLA's dots in their own order, and the card's expf may
+# differ from the CPU's vectorised exp in the last bit; the twin on the
+# CPU is within 7 of JAX on every case.
+K4_JAX_ULPS = 16
+
+
+def f32_ulps(a, b):
+    """The largest difference of two float32 arrays in ulps of
+    max(|a|, |b|, 1) (0 where both are NaN), and the entries that are NaN
+    in one only."""
+    u, v = (np.asarray(t, np.float32).astype(np.float64) for t in (a, b))
+    nan = np.isnan(u) | np.isnan(v)
+    mag = np.maximum(np.maximum(np.abs(np.where(nan, 0, u)),
+                                np.abs(np.where(nan, 0, v))), 1.0)
+    with np.errstate(invalid="ignore"):
+        d = np.where(nan | (u == v), 0.0, np.abs(u - v)
+                     / np.exp2(np.floor(np.log2(mag)) - 23))
+    return (float(d.max()) if d.size else 0.0,
+            int((np.isnan(u) != np.isnan(v)).sum()))

@@ -1,8 +1,9 @@
 """Seeded numpy inputs for `edge_descriptors`: the cases the port's CPU
 tests hold the twin against JAX with, and its `gpu` tests hold K5 against
-the twin with. No JAX or torch here: `case(name, N)` returns float32
-gradient maps gx, gy (H, W), edges x, y, theta (N,) and the keyword
-arguments (`VOConfig()`'s descriptor settings)."""
+the twin with. No JAX here: `case(name, N)` returns float32 gradient
+maps gx, gy (H, W), edges x, y, theta (N,) and the keyword arguments
+(`VOConfig()`'s descriptor settings); `bf16_ulps` (on torch tensors) is
+the tolerance K5 is held to against JAX's outputs."""
 
 import numpy as np
 
@@ -91,3 +92,18 @@ def case(name, N, seed=0):
     f32 = np.float32
     return ((gx.astype(f32), gy.astype(f32)),
             tuple(np.asarray(a).astype(f32) for a in (x, y, th)), dict(KW))
+
+
+def bf16_ulps(a, b):
+    """Entries of two bf16 tensors that are NaN in one only, or that differ
+    by more than one bf16 ulp of max(|a|, |b|, 1) (the CPU tests' tolerance
+    against JAX), and the largest difference in those ulps."""
+    import torch
+
+    u, v = a.float(), b.float()
+    nan = u.isnan() | v.isnan()
+    mag = torch.clamp(torch.maximum(u.abs(), v.abs()), min=1.0)
+    ulps = torch.where(nan | (u == v), 0.0, (u - v).abs()
+                       / torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    bad = (u.isnan() != v.isnan()) | ~(ulps <= 1)
+    return int(bad.sum()), float(ulps.max()) if ulps.numel() else 0.0

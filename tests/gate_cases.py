@@ -1,7 +1,9 @@
 """Seeded numpy inputs for K6 (the dense NCC and descriptor gates) and K7
 (two-side edge patches): the cases the port's CPU tests hold the twins
 against JAX with, and its `gpu` tests hold the kernels against the twins
-with. No JAX or torch here.
+with. No JAX here, and torch only inside the helpers at the end
+(`gate_tensors`, `k6_args`, `gate_errors`, and the kernels against the
+JAX fixture, `k6_against_jax` and `k7_against_jax`).
 
 `stereo_case(name)` returns the operands of the stereo entry: bf16-valued
 float32 descriptors l_desc (N, 256) and r_desc (Nr, 256), cand (N, C)
@@ -179,3 +181,115 @@ def patch_case(name, B=N_EDGES, seed=0):
     else:
         assert name == "interior", name
     return img, tuple(a.astype(np.float32) for a in (x, y, th))
+
+
+def gate_tensors(case, dev):
+    """A case (numpy) as tensors on `dev`, the descriptors and the CF
+    patches in bf16."""
+    import torch
+
+    out = {}
+    for k, v in case.items():
+        v = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        out[k] = v.to(torch.bfloat16) if "desc" in k or k == "cf_pat" else v
+    return out
+
+
+def k6_args(kind, t, patch_size=None):
+    """(args, kwargs) of K6's `kind` entry ("stereo", "temporal", "flat")
+    on a case's tensors (made at `patch_size`, the cases' P = 7 if None),
+    with the fills the cascades use."""
+    P_ = P if patch_size is None else patch_size
+    if kind == "stereo":
+        return ((t["l_desc"], t["r_desc"], t["cand"], t["cmask"], t["l_pat"],
+                 t["l_ok"], t["r_pat"], t["r_ok"], SIFT, P_),
+                dict(fill_dist=2 * SIFT, fill_ncc=0.0))
+    if kind == "temporal":
+        return ((t["kf_pat_l"], t["kf_ok_l"], t["kf_pat_r"], t["kf_ok_r"],
+                 t["kf_desc_l"], t["kf_desc_r"], t["cf_pat"], t["cf_ok"],
+                 t["cf_desc"], t["cf_idx"], t["cmask"], P_),
+                dict(fill_ncc=-1.0, fill_dist=900.0))
+    assert kind == "flat", kind
+    return ((t["l_pat"], t["l_ok"], t["rows"], t["r_pat"], t["r_ok"],
+             t["live"], P_), dict(fill=0.6 + 1e-6))
+
+
+def gate_errors(a, b, mask, tol, relative=False):
+    """Entries of `mask` where a and b (numpy) differ past the CPU tests'
+    tolerance against JAX: NaN in one only, or |a - b| > atol + rtol |b|
+    (relative: rtol = tol, atol = tol max(1, max |b|) as
+    tests/test_torch_ops.py's `close`; else atol = tol). Returns (that
+    count, the largest |a - b| over the entries finite in both)."""
+    mask = np.asarray(mask, bool)
+    a = np.asarray(a, np.float64)[mask]
+    b = np.asarray(b, np.float64)[mask]
+    fin = np.isfinite(a) & np.isfinite(b)
+    scale = max(1.0, float(np.abs(b[fin]).max())) if fin.any() else 1.0
+    atol, rtol = (tol * scale, tol) if relative else (tol, 0.0)
+    d = np.abs(np.where(fin, a - b, 0.0))
+    bad = ((np.isnan(a) != np.isnan(b))
+           | (fin & (d > atol + rtol * np.abs(np.where(fin, b, 0.0))))
+           | (~fin & ~np.isnan(a) & (a != b)))
+    return int(bad.sum()), float(d.max()) if d.size else 0.0
+
+
+def k6_against_jax(dev):
+    """K6 on the card against the JAX package's `min_cross_distance_dot`
+    and `ncc4` on every case (`tests/data/k6_k7_jax_reference.npz`):
+    {case: (entries past the CPU tests' tolerance, the largest distance
+    and NCC differences)}; the distances within 0.05 on the live slots,
+    the NCC within 1e-5 of max(1, |b|) on the pairs it computed."""
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from scripts import k6_k7_jax_reference as KJ
+
+    res = {}
+    with np.load(KJ.PATH) as ref:
+        for name in GATE_CASES:
+            s = stereo_case(name)
+            a, kw = k6_args("stereo", gate_tensors(s, dev))
+            d, n = (x.cpu().numpy() for x in PAT.dense_gates_stereo_cuda(*a,
+                                                                        **kw))
+            f = flat_case(name)
+            a, kw = k6_args("flat", gate_tensors(f, dev))
+            fl = PAT.dense_gates_flat_cuda(*a, **kw).cpu().numpy()
+            tc = temporal_case(name)
+            a, kw = k6_args("temporal", gate_tensors(tc, dev))
+            tm = PAT.dense_gates_temporal_cuda(*a, **kw).cpu().numpy()
+            rd, rn = ref[f"stereo/{name}/dist"], ref[f"stereo/{name}/ncc"]
+            rt = ref[f"temporal/{name}"]
+            live, tlive = s["cmask"], tc["cmask"]
+            errs = [gate_errors(d, rd, live, 0.05),
+                    gate_errors(n, rn, live & (d < SIFT), 1e-5, True),
+                    gate_errors(fl, rn.reshape(-1), f["live"], 1e-5, True)]
+            errs += [gate_errors(tm[q], rt[q], tlive, 1e-5, True)
+                     for q in (0, 1)]
+            errs += [gate_errors(tm[q], rt[q], tlive, 0.05) for q in (2, 3)]
+            res[name] = (sum(e[0] for e in errs),
+                         max(errs[0][1], errs[5][1], errs[6][1]),
+                         max(errs[1][1], errs[2][1], errs[3][1],
+                             errs[4][1]))
+    return res
+
+
+def k7_against_jax(dev):
+    """K7 on the card against the JAX package's `edge_patches_tiled` on
+    every patch case (the same file): {case: (values past 1e-5 of
+    max(1, |b|) or NaN in one only, the largest difference, ok flags that
+    differ)}."""
+    import torch
+
+    from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
+    from scripts import k6_k7_jax_reference as KJ
+
+    res = {}
+    with np.load(KJ.PATH) as ref:
+        for name in PATCH_CASES:
+            img, edges = patch_case(name)
+            pat, ok = (x.cpu().numpy() for x in PAT.edge_patches_cuda(
+                *(torch.from_numpy(a).to(dev) for a in (img, *edges)),
+                P, SHIFT))
+            n_bad, err = gate_errors(pat, ref[f"patches/{name}/pat"],
+                                     np.ones(pat.shape, bool), 1e-5, True)
+            res[name] = (n_bad, err,
+                         int((ok != ref[f"patches/{name}/ok"]).sum()))
+    return res

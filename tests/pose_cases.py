@@ -1,8 +1,9 @@
 """Seeded numpy inputs for K8 (RANSAC hypothesis scoring), K9 (the pose
 Gauss-Newton step) and `estimate_pose`: the cases the port's CPU tests
 hold the twins against float64 numpy and JAX with, and its `gpu` tests
-and `chip_smoke.py` hold the kernels against the twins with. No JAX or
-torch here.
+hold the kernels against the twins with. No JAX here, and torch only
+inside the two helpers at the end for the card (`pose_twins`,
+`singular_on_card`).
 
 `singular_quads(seed)` is the case that made the port's refinement solve
 raise where JAX returns a pose: 64 quads of which only the first 2 are
@@ -16,6 +17,8 @@ the camera, a small rotation and translation, CF centres projected with
 `hypotheses(seed, K_hyp)` makes K R and K t for poses near the
 true one, some behind the camera, and a gate with some False.
 """
+
+import contextlib
 
 import numpy as np
 
@@ -111,3 +114,52 @@ def gn_pose(seed, spread=0.001):
     R = _rot(rng.normal(0, spread, 3)) @ R0
     return (R.astype(np.float32),
             (t0 + rng.normal(0, spread, 3)).astype(np.float32))
+
+
+@contextlib.contextmanager
+def pose_twins():
+    """A context in which `estimate_pose` runs K8's and K9's plain twins
+    on the card (the module attributes it calls, swapped)."""
+    from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
+
+    saved = (POSE.ransac_counts, POSE.pose_gn_normal_equations)
+    POSE.ransac_counts = POSE.ransac_counts_plain
+    POSE.pose_gn_normal_equations = POSE.pose_gn_normal_equations_plain
+    try:
+        yield
+    finally:
+        POSE.ransac_counts, POSE.pose_gn_normal_equations = saved
+
+
+def singular_on_card(dev):
+    """The singular refinement case through `estimate_pose` on the card
+    and on the CPU with the same draws: asserts that the card returns
+    `success`, 2 inliers and a finite pose within 1e-4 of the CPU's.
+    Returns the seeds."""
+    import torch
+
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
+    from edge_based_visual_odometry_tpu_torch.models import types as TY
+
+    cfg = VOConfig(**SINGULAR_CFG)
+    draws = np.arange(cfg.ransac_max_iterations) % 2
+    for seed in SINGULAR_SEEDS:
+        res = {}
+        for d in ("cpu", dev):
+            pq = MT.PoseQuads(**{k: torch.as_tensor(np.array(v)).to(d)
+                                 for k, v in singular_quads(seed).items()})
+            res[str(d)] = MT.estimate_pose(
+                pq, TY.rig_arrays_from_rig(S.default_rig(120, 160), d), cfg,
+                idx=(draws, 1 - draws))
+        c, g = res["cpu"], res[str(dev)]
+        assert (bool(g.success) and int(g.inlier_count) == 2
+                and bool(torch.isfinite(g.R).all()
+                         and torch.isfinite(g.t).all())), (
+            f"singular case {seed} on the card: success {bool(g.success)}, "
+            f"{int(g.inlier_count)} inliers, R {g.R.tolist()}")
+        err = max(float((g.R.cpu() - c.R).abs().max()),
+                  float((g.t.cpu() - c.t).abs().max()))
+        assert err <= 1e-4, (f"singular case {seed}: card and CPU poses "
+                             f"{err:.3g} apart")
+    return SINGULAR_SEEDS

@@ -1,8 +1,10 @@
 """The bound arithmetic chip_smoke.py reports beside each kernel's time:
 work counted from the shapes (K1, K5, K7), from the iterations a launch
 ran (K2, K3) and from the active or live slots (K4, K6), and the least
-time the card needs for it. chip_smoke.py imports
-without CUDA; only its main() needs the card."""
+time the card needs for it. The counts are the benchmark's
+(`vo_bench/harness/work.py`), which chip_smoke.py re-exports; these cases
+are their one copy. chip_smoke.py imports without CUDA; only its main()
+needs the card."""
 
 import numpy as np
 import pytest

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels (K1, TOED's NMS and compaction, K2, K3,
 K3's both-sides launch, K4, K5, K6's three entries, K7, K8, K9) against
-their plain-PyTorch twins, on the card, and the paths through them (the
-pipeline, BA, the CLI, the NCCL pair step and its production memory). Every test here needs a CUDA
-device (marker `gpu`) and skips without one. The file imports no JAX, so it also
-runs where JAX is not installed:
+their plain-PyTorch twins, on the card: on seeded cases, and on every
+call of a full-size frame of each benchmark cell (`tests/frame_calls.py`);
+and the paths through them (the pipeline, BA, the CLI, the NCCL pair step
+and its production memory). Every test here needs a CUDA device (marker
+`gpu`) and skips without one. The file imports no JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -14,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as C
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
@@ -30,9 +31,9 @@ from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
-from scripts import k6_k7_jax_reference as K67
 from tests import cluster_cases as CC
 from tests import descriptor_cases as DC
+from tests import frame_calls as FC
 from tests import gate_cases as GC
 from tests import pose_cases as PC
 from tests import toed_nms_cases as NC
@@ -71,12 +72,7 @@ def test_toed_kernel_matches_twin(dev, frame, shape):
     out = T.toed_gradient_field_cuda(x)
     ref = T.toed_gradient_field_plain(x)
     torch.cuda.synchronize()
-    for a, b in zip(out[:3], ref[:3]):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
-    m = ref[2] > 2.0
-    d = (out[3] - ref[3]).abs()[m]
-    d = torch.minimum(d, 2 * np.pi - d)
-    assert float(torch.quantile(d.double().cpu(), 0.999)) < 1e-3
+    FC.assert_toed_close(out, ref)
 
 
 def test_gn_kernel_matches_twin_bit_for_bit(dev, frame):
@@ -117,12 +113,7 @@ def test_toed_kernel_ragged_shapes(dev, shape):
     out = T.toed_gradient_field_cuda(x)
     ref = T.toed_gradient_field_plain(x)
     torch.cuda.synchronize()
-    for a, b in zip(out[:3], ref[:3]):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
-    m = ref[2] > 2.0
-    d = (out[3] - ref[3]).abs()[m]
-    d = torch.minimum(d, 2 * np.pi - d)
-    assert float(torch.quantile(d.double().cpu(), 0.999)) < 1e-3
+    FC.assert_toed_close(out, ref)
 
 
 def test_toed_kernel_taps_follow_sigma(dev, frame):
@@ -138,15 +129,6 @@ def test_toed_kernel_taps_follow_sigma(dev, frame):
 
 
 # ---- TOED's NMS, subpixel fit and compaction (csrc/toed_nms_compact.cu)
-def _edges_bit_equal(got, ref, what=""):
-    """Two EdgeLists equal bit for bit, every field and the count."""
-    for nm, a, b in zip(TY.EdgeList._fields, got, ref):
-        assert a.dtype == b.dtype and a.shape == b.shape, (what, nm)
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b), (what, nm)
-
-
 @pytest.fixture(scope="module")
 def bench_frames():
     """Three frames of each benchmark cell's scene (KITTI's street,
@@ -191,7 +173,7 @@ def test_toed_nms_kernel_matches_twin_on_bench_frames(dev, bench_frames,
     ref = T.nms_compact_plain(*fields, H, W, max_edges, **kw)
     full = T.nms_compact_plain(*fields, H, W, 1 << 20, **kw)
     for b in range(2):
-        _edges_bit_equal(got[b], ref[b], f"{cell} image {b}")
+        FC.edges_bit_equal(got[b], ref[b], f"{cell} image {b}")
         assert 1024 < int(full[b].count) < 32768
 
 
@@ -213,7 +195,7 @@ def test_toed_nms_kernel_odd_sizes(dev, shape, border, grad_mag_min,
     ref = T.nms_compact_plain(*fields, h, w, max_edges, **kw)
     assert len(got) == B
     for b in range(B):
-        _edges_bit_equal(got[b], ref[b], f"image {b}")
+        FC.edges_bit_equal(got[b], ref[b], f"image {b}")
 
 
 @pytest.mark.parametrize("name", sorted(NC.LIMIT_CASES))
@@ -226,9 +208,9 @@ def test_toed_nms_kernel_at_the_limits(dev, name):
     cpu = [torch.from_numpy(f) for f in fields]
     on = [t.to(dev) for t in cpu]
     got = T.nms_compact_cuda(*on, H, W, 16, grad_mag_min=gmin, border=border)
-    _edges_bit_equal(got[0], T.nms_compact_plain(
+    FC.edges_bit_equal(got[0], T.nms_compact_plain(
         *on, H, W, 16, grad_mag_min=gmin, border=border)[0])
-    _edges_bit_equal([t.cpu() for t in got[0]], T.nms_compact_plain(
+    FC.edges_bit_equal([t.cpu() for t in got[0]], T.nms_compact_plain(
         *cpu, H, W, 16, grad_mag_min=gmin, border=border)[0])
     assert int(got[0].count) == len(kept)
 
@@ -246,7 +228,7 @@ def test_toed_nms_kernel_zero_and_nan_fields(dev):
         ref = T.nms_compact_plain(*fields, 20, 30, 128, grad_mag_min=gmin,
                                   border=0)
         for a, b in zip(got, ref):
-            _edges_bit_equal(a, b)
+            FC.edges_bit_equal(a, b)
             assert int(a.count) == 0
             assert all(bool(torch.isfinite(t).all()) for t in a[:4])
 
@@ -268,7 +250,7 @@ def test_toed_nms_kernel_in_a_step_graph_equals_eager(dev, bench_frames):
         got = graph((imgs,))
         eager = T.detect_edges(torch.stack(imgs).to(torch.float32))
         for b in range(2):
-            _edges_bit_equal(got[b], eager[b], f"call {k} image {b}")
+            FC.edges_bit_equal(got[b], eager[b], f"call {k} image {b}")
     assert CB.GRAPH_STEPS["stereo_step"] == dict(capture=1, replay=3,
                                                  eager=1)
     # 5 graph calls and 5 eager calls, two launches each
@@ -289,9 +271,9 @@ def test_toed_nms_dispatch_and_operands(dev, frame):
     fields = T.toed_gradient_field_cuda(x)
     ref = T.nms_compact_plain(*fields, 120, 160, 4096)
     for a, b in zip(got, ref):
-        _edges_bit_equal(a, b)
+        FC.edges_bit_equal(a, b)
     one = T.detect_edges(x[0], max_edges=4096)
-    _edges_bit_equal(one, ref[0])
+    FC.edges_bit_equal(one, ref[0])
     f = list(fields)
     with pytest.raises(ValueError):
         T.nms_compact_cuda(*f[:3], f[3].double(), 120, 160, 64)
@@ -362,6 +344,22 @@ def test_gn_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
                 torch.testing.assert_close(a[act], b[act], rtol=0, atol=0)
 
 
+def k3_side(kf_img, cf_img, cf_gx, cf_gy, kx, ky, ktheta, cx, cy, ctheta,
+            d0, active, it0, it_stop, patch_size=7, max_iter=20, tol=1e-3,
+            huber_delta=3.0, tile=32, maps4=None):
+    """`refine_2dof_plain`'s contract on K3: its sides entry over one
+    side, from an explicit d0, iterations [it0, it_stop). `maps4`: the
+    side's interleaved CF maps, made here if None."""
+    if maps4 is None:
+        maps4 = GN.interleave_maps(cf_img, cf_gx, cf_gy)
+    out = GN.k3_outputs(1, kx.shape[0], kx.device)
+    GN._k3_launch([kf_img], maps4[None], torch.stack([kx, ky, ktheta], -1),
+                  torch.stack([cx, cy, ctheta], -1), active, out, it0,
+                  it_stop, max_iter, patch_size, tol, huber_delta, tile,
+                  d0=d0[None].contiguous())
+    return GN.RefineResult(*(t[0] for t in out[:5])), out[5][0]
+
+
 def _2dof_lanes(rng, B, H, W):
     """K3 lanes at every border (the candidates of `_border_lanes`), each
     KF edge within 3 px of its candidate, CF orientations at random, and
@@ -374,14 +372,6 @@ def _2dof_lanes(rng, B, H, W):
     d0 = np.stack([kx - cx, ky - cy], -1) + u(-1, 1, (B, 2))
     f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return [f32(a) for a in (kx, ky, kt, cx, cy, ct)], f32(d0)
-
-
-def _assert_same(k, p, act):
-    """Kernel and twin (RefineResult, done) bit-equal on the `act` lanes
-    (a NaN equals a NaN)."""
-    for a, b in zip((*k[0], k[1]), (*p[0], p[1])):
-        torch.testing.assert_close(a[act], b[act], rtol=0, atol=0,
-                                   equal_nan=True)
 
 
 def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
@@ -409,10 +399,10 @@ def test_2dof_kernel_matches_twin_bit_for_bit(dev, frame):
     d0 = torch.stack([lanes[0] - lanes[3], lanes[1] - lanes[4]], -1)
     for tile in (32, 48):
         for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
-            k = C.k3_side(*imgs, *lanes, d0, act, it0, it_stop, tile=tile)
+            k = k3_side(*imgs, *lanes, d0, act, it0, it_stop, tile=tile)
             p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
                                      tile=tile)
-            _assert_same(k, p, act)
+            FC.assert_same(k, p, act)
     kw = dict(patch_size=7, max_iter=20, tol=1e-3, huber_delta=3.0, tile=32)
     CB.reset_launch_counts()
     two = GN.refine_2dof_batch(*imgs, *lanes, active=act, chunk=8,
@@ -448,12 +438,12 @@ def test_2dof_kernel_bit_for_bit_at_borders(dev, frame, tile, patch_size):
     act = torch.from_numpy(rng.random(B) > 0.05).to(dev)
     maps4 = GN.interleave_maps(*imgs[1:])
     for it0, it_stop in ((0, 2), (2, 20), (0, 20)):
-        k = C.k3_side(*imgs, *lanes, d0, act, it0, it_stop,
-                      patch_size=patch_size, tile=tile, maps4=maps4)
+        k = k3_side(*imgs, *lanes, d0, act, it0, it_stop,
+                    patch_size=patch_size, tile=tile, maps4=maps4)
         p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, it0, it_stop,
                                  patch_size=patch_size, tile=tile)
         torch.cuda.synchronize()
-        _assert_same(k, p, act)
+        FC.assert_same(k, p, act)
 
 
 def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
@@ -471,13 +461,13 @@ def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
         torch.full_like(kf, 1000.0))]
     lanes, d0 = [a.to(dev) for a in lanes], d0.to(dev)
     act = torch.ones(64, dtype=torch.bool, device=dev)
-    k = C.k3_side(*imgs, *lanes, d0, act, 0, 20)
+    k = k3_side(*imgs, *lanes, d0, act, 0, 20)
     p = GN.refine_2dof_plain(*imgs, *lanes, d0, act, 0, 20)
     assert bool(torch.isfinite(k[0].delta).all())
     assert bool((k[0].iters == 1).all()) and bool(k[1].all())
     assert not bool(k[0].valid.any()) and bool((k[0].score == 1e6).all())
     torch.testing.assert_close(k[0].delta, d0, rtol=0, atol=0)
-    _assert_same(k, p, act)
+    FC.assert_same(k, p, act)
     maps4 = GN.interleave_maps(*imgs[1:])[None].repeat(2, 1, 1, 1)
     pack = lambda a: torch.stack(a * 2, -1).contiguous()     # noqa: E731
     res, done = GN.refine_2dof_sides_cuda(
@@ -486,7 +476,7 @@ def test_2dof_kernel_keeps_nan_steps_as_the_twin(dev, frame):
     ref = GN.refine_2dof_plain(*imgs, *lanes, torch.stack(
         [lanes[0] - lanes[3], lanes[1] - lanes[4]], -1), act, 0, 20, tile=32)
     for r, dn in zip(res, done):
-        _assert_same((r, dn), ref, act)
+        FC.assert_same((r, dn), ref, act)
 
 
 def _pair_lanes(frame, dev, seed, B):
@@ -532,7 +522,7 @@ def test_2dof_sides_launch_matches_twin_bit_for_bit(dev, frame, tile,
     for sd, r, dn in zip(sides, one, done):
         d0 = torch.stack([sd[4] - sd[7], sd[5] - sd[8]], -1)
         p = GN.refine_2dof_plain(*sd, d0, act, 0, 20, **kw)
-        _assert_same((r, dn), p, act)
+        FC.assert_same((r, dn), p, act)
     for budget in (16, 4096):
         ph = dict(chunk=8, phase1_iters=2, phase2_budget=budget)
         CB.reset_launch_counts()
@@ -549,9 +539,9 @@ def test_2dof_sides_launch_matches_twin_bit_for_bit(dev, frame, tile,
                        chunk=8)
             plain, pdone = GN._two_phase_in_place(
                 run(GN.refine_2dof_plain), B, lanes, act, d0, **ph2)
-            _assert_same((r, dn), (plain, pdone), act)
-            old = GN._two_phase(run(C.k3_side), B, lanes, act, d0, **ph2)
-            _assert_same((r, dn), (old, dn), act)
+            FC.assert_same((r, dn), (plain, pdone), act)
+            old = GN._two_phase(run(k3_side), B, lanes, act, d0, **ph2)
+            FC.assert_same((r, dn), (old, dn), act)
 
 
 def test_wrappers_validate_operands(dev):
@@ -631,19 +621,6 @@ def _cluster_args(name, N, C, dev, seed=0, **over):
     return [torch.from_numpy(a).to(dev) for a in (x, y, th, mask)], kw
 
 
-def _assert_cluster_same(k, p):
-    """K4 and its twin: label, mask and members equal, x / y / theta bit
-    for bit (a NaN equals a NaN)."""
-    for a, b in zip(k, p):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        if a.is_floating_point():
-            same = ((a.view(torch.int32) == b.view(torch.int32))
-                    | (a.isnan() & b.isnan()))
-            assert bool(same.all())
-        else:
-            assert torch.equal(a, b)
-
-
 @pytest.mark.parametrize("name", CC.CASES)
 def test_cluster_kernel_matches_twin_bit_for_bit(dev, name):
     """K4 against the twin run on the card, 4,096 rows of 32 slots, cap 10
@@ -652,7 +629,7 @@ def test_cluster_kernel_matches_twin_bit_for_bit(dev, name):
     k = CL.cluster_edges_cuda(*args, **kw)
     p = CL.cluster_edges_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_cluster_same(k, p)
+    FC.assert_cluster_same(k, p)
     assert int(k.mask.sum()) > 0 or name == "all_masked_rows"
 
 
@@ -669,7 +646,7 @@ def test_cluster_kernel_small_shapes(dev, N, C, cap):
     k = CL.cluster_edges_cuda(*args, **kw)
     p = CL.cluster_edges_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_cluster_same(k, p)
+    FC.assert_cluster_same(k, p)
 
 
 def test_cluster_kernel_relabels_groups_that_fit_the_cap(dev):
@@ -681,7 +658,7 @@ def test_cluster_kernel_relabels_groups_that_fit_the_cap(dev):
     k = CL.cluster_edges_cuda(*args, **kw)
     p = CL.cluster_edges_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_cluster_same(k, p)
+    FC.assert_cluster_same(k, p)
 
 
 @pytest.mark.parametrize("name", CC.CASES)
@@ -693,7 +670,7 @@ def test_cluster_kernel_wide_rows(dev, slots, name):
     k = CL.cluster_edges_cuda(*args, **kw)
     p = CL.cluster_edges_plain(*args, **kw, chunk=256)
     torch.cuda.synchronize()
-    _assert_cluster_same(k, p)
+    FC.assert_cluster_same(k, p)
 
 
 @pytest.mark.parametrize("name", CC.CASES)
@@ -701,7 +678,7 @@ def test_cluster_kernel_matches_jax_reference(dev, name):
     """K4 on the card against the JAX package's `cluster_edges` on the case
     at 64 rows of 32 slots (`tests/data/k4_jax_reference.npz`, held
     current by a CPU test): label, mask and members equal, x / y / theta
-    within `chip_smoke.K4_JAX_ULPS` ulps of max(|a|, |b|, 1) (the sums'
+    within `cluster_cases.K4_JAX_ULPS` ulps of max(|a|, |b|, 1) (the sums'
     order and exp's last bit), NaN where JAX has NaN."""
     x, y, th, mask, kw = K4J.inputs(name)
     k = CL.cluster_edges_cuda(
@@ -711,8 +688,8 @@ def test_cluster_kernel_matches_jax_reference(dev, name):
     for f in ("label", "mask", "members"):
         np.testing.assert_array_equal(getattr(k, f).cpu().numpy(), ref[f])
     for f in ("x", "y", "theta"):
-        ulps, n_nan = C.f32_ulps(getattr(k, f).cpu().numpy(), ref[f])
-        assert n_nan == 0 and ulps <= C.K4_JAX_ULPS, (f, ulps, n_nan)
+        ulps, n_nan = CC.f32_ulps(getattr(k, f).cpu().numpy(), ref[f])
+        assert n_nan == 0 and ulps <= CC.K4_JAX_ULPS, (f, ulps, n_nan)
 
 
 def test_cluster_edges_dispatch_counts_one_launch(dev, monkeypatch):
@@ -721,7 +698,7 @@ def test_cluster_edges_dispatch_counts_one_launch(dev, monkeypatch):
     k = CL.cluster_edges(*args, **kw)
     torch.cuda.synchronize()
     assert CB.LAUNCHES["cluster_edges"] == before + 1
-    _assert_cluster_same(k, CL.cluster_edges_plain(*args, **kw))
+    FC.assert_cluster_same(k, CL.cluster_edges_plain(*args, **kw))
 
     def no_build():
         raise AssertionError("CPU tensors must not build or launch a kernel")
@@ -736,14 +713,6 @@ def _desc_args(name, N, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in maps + edges], kw
 
 
-def _assert_bf16_same(k, p):
-    """K5 and its twin: bf16 bit for bit (a NaN equals a NaN)."""
-    assert k.shape == p.shape and k.dtype == p.dtype == torch.bfloat16
-    same = ((k.view(torch.int16) == p.view(torch.int16))
-            | (k.isnan() & p.isnan()))
-    assert bool(same.all())
-
-
 @pytest.mark.parametrize("name", DC.CASES)
 def test_descriptor_kernel_matches_twin_bit_for_bit(dev, name):
     """K5 against the twin run on the card, 2,048 edges (4,096 keypoints)
@@ -752,7 +721,7 @@ def test_descriptor_kernel_matches_twin_bit_for_bit(dev, name):
     k = DESC.edge_descriptors_cuda(*args, **kw)
     p = DESC.edge_descriptors_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_bf16_same(k, p)
+    FC.assert_bf16_same(k, p)
     assert k.shape == (2048, 256)
 
 
@@ -765,7 +734,7 @@ def test_descriptor_kernel_small_shapes(dev, N, name):
     k = DESC.edge_descriptors_cuda(*args, **kw)
     p = DESC.edge_descriptors_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_bf16_same(k, p)
+    FC.assert_bf16_same(k, p)
     assert k.shape == (N, 256)
 
 
@@ -780,7 +749,7 @@ def test_descriptor_kernel_other_grids(dev, n_samples, spacing, name):
     k = DESC.edge_descriptors_cuda(*args, **kw)
     p = DESC.edge_descriptors_plain(*args, **kw)
     torch.cuda.synchronize()
-    _assert_bf16_same(k, p)
+    FC.assert_bf16_same(k, p)
 
 
 @pytest.mark.parametrize("name", DC.CASES)
@@ -795,7 +764,7 @@ def test_descriptor_kernel_matches_jax_reference(dev, name):
     with np.load(KJ.PATH) as refs:
         ref = torch.from_numpy(refs[name].astype(np.int16)).view(
             torch.bfloat16)
-    n_bad, ulps = C.bf16_ulps(k, ref)
+    n_bad, ulps = DC.bf16_ulps(k, ref)
     assert n_bad == 0, f"{n_bad} entries past 1 bf16 ulp (at most {ulps})"
 
 
@@ -815,7 +784,7 @@ def test_edge_descriptors_dispatch_counts_one_launch(dev, monkeypatch):
     k = DESC.edge_descriptors(*args, **kw)
     torch.cuda.synchronize()
     assert CB.LAUNCHES["edge_descriptors"] == before + 1
-    _assert_bf16_same(k, DESC.edge_descriptors_plain(*args, **kw))
+    FC.assert_bf16_same(k, DESC.edge_descriptors_plain(*args, **kw))
 
     def no_build():
         raise AssertionError("CPU tensors must not build or launch a kernel")
@@ -823,15 +792,6 @@ def test_edge_descriptors_dispatch_counts_one_launch(dev, monkeypatch):
     monkeypatch.setattr(CB, "lib", no_build)
     DESC.edge_descriptors(*(a.cpu() for a in args), **kw)
     assert CB.LAUNCHES["edge_descriptors"] == before + 1
-
-
-def _same_f32(a, b):
-    """Bit-equal float32 tensors, a NaN equal to a NaN."""
-    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
-    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan()
-                                                           & b.isnan())
-    n_bad = int((~same).sum())
-    assert n_bad == 0, f"{n_bad} of {a.numel()} values not bit-equal"
 
 
 def _rows(case, n, seed, keys):
@@ -850,14 +810,14 @@ TEMPORAL_ROWS = ("kf_pat_l", "kf_ok_l", "kf_pat_r", "kf_ok_r", "kf_desc_l",
 def _gates_same(dev, name, n, seed, patch_size=GC.P):
     """K6's three entries against their twins run on the card at n rows
     (n C flat pairs) of the case made at `patch_size`."""
-    s = C.gate_tensors(_rows(GC.stereo_case(name, patch_size=patch_size), n,
-                             seed, STEREO_ROWS), dev)
-    a, kw = C.k6_args("stereo", s, patch_size)
+    s = GC.gate_tensors(_rows(GC.stereo_case(name, patch_size=patch_size),
+                              n, seed, STEREO_ROWS), dev)
+    a, kw = GC.k6_args("stereo", s, patch_size)
     k, p = (PAT.dense_gates_stereo_cuda(*a, **kw),
             PAT.dense_gates_stereo_plain(*a, **kw))
-    t = C.gate_tensors(_rows(GC.temporal_case(name, patch_size=patch_size),
-                             n, seed, TEMPORAL_ROWS), dev)
-    a, kw = C.k6_args("temporal", t, patch_size)
+    t = GC.gate_tensors(_rows(GC.temporal_case(name, patch_size=patch_size),
+                              n, seed, TEMPORAL_ROWS), dev)
+    a, kw = GC.k6_args("temporal", t, patch_size)
     kt, pt = (PAT.dense_gates_temporal_cuda(*a, **kw),
               PAT.dense_gates_temporal_plain(*a, **kw))
     slots = s["cmask"].shape[1]
@@ -866,12 +826,12 @@ def _gates_same(dev, name, n, seed, patch_size=GC.P):
              rows=torch.arange(n, device=dev).repeat_interleave(slots),
              r_pat=s["r_pat"][j], r_ok=s["r_ok"][j],
              live=s["cmask"].reshape(-1))
-    a, kw = C.k6_args("flat", f, patch_size)
+    a, kw = GC.k6_args("flat", f, patch_size)
     kf, pf = (PAT.dense_gates_flat_cuda(*a, **kw),
               PAT.dense_gates_flat_plain(*a, **kw))
     torch.cuda.synchronize()
     for x, y in ((k[0], p[0]), (k[1], p[1]), (kt, pt), (kf, pf)):
-        _same_f32(x, y)
+        FC.same_f32(x, y)
     return k, kt, kf
 
 
@@ -906,11 +866,11 @@ def test_dense_gates_empty_tables_and_rows(dev):
     """K6 where a row has live slots nowhere (every mask False) over an
     empty candidate table: the fills everywhere, and only the gates
     launched (no prep pass over no row)."""
-    s = C.gate_tensors(GC.stereo_case("interior"), dev)
+    s = GC.gate_tensors(GC.stereo_case("interior"), dev)
     s["cmask"] = torch.zeros_like(s["cmask"])
     for k in ("r_desc", "r_pat", "r_ok"):
         s[k] = s[k][:0]
-    a, kw = C.k6_args("stereo", s)
+    a, kw = GC.k6_args("stereo", s)
     before = CB.LAUNCHES["dense_gates"]
     d, n = PAT.dense_gates_stereo_cuda(*a, **kw)
     torch.cuda.synchronize()
@@ -934,13 +894,13 @@ def test_dense_gates_kernel_gives_exact_copies_distance_zero(dev):
     """A candidate equal to the row, or with its halves swapped: kernel
     and twin both give a distance of exactly 0 (the same lane order on
     both sides of |a|^2 + |b|^2 - 2 a.b)."""
-    s = C.gate_tensors(GC.copies(), dev)
-    a, kw = C.k6_args("stereo", s)
+    s = GC.gate_tensors(GC.copies(), dev)
+    a, kw = GC.k6_args("stereo", s)
     k = PAT.dense_gates_stereo_cuda(*a, **kw)
     p = PAT.dense_gates_stereo_plain(*a, **kw)
     torch.cuda.synchronize()
-    _same_f32(k[0], p[0])
-    _same_f32(k[1], p[1])
+    FC.same_f32(k[0], p[0])
+    FC.same_f32(k[1], p[1])
     rows = torch.arange(GC.N_ROWS, device=dev)[:, None]
     exact = s["cmask"] & (s["cand"] == rows) & (rows % 3 < 2)
     assert bool(exact.any()) and bool((k[0][exact] == 0).all())
@@ -952,8 +912,8 @@ def test_dense_gates_kernel_matches_jax_reference(dev):
     (`tests/data/k6_k7_jax_reference.npz`, held current by a CPU test):
     distances within the CPU tests' 0.05 on the live slots, NCC within
     1e-5 of max(1, |b|) on the pairs K6 computed, NaN where JAX has NaN
-    (`chip_smoke.k6_against_jax`)."""
-    res = C.k6_against_jax(dev)
+    (`gate_cases.k6_against_jax`)."""
+    res = GC.k6_against_jax(dev)
     assert set(res) == set(GC.GATE_CASES)
     assert all(n_bad == 0 for n_bad, _, _ in res.values()), res
 
@@ -979,7 +939,7 @@ def test_edge_patches_kernel_matches_twin_bit_for_bit(dev, name, B,
     k = PAT.edge_patches_cuda(*a, **kw)
     p = PAT.edge_patches_plain(*a, **kw)
     torch.cuda.synchronize()
-    _same_f32(k[0], p[0])
+    FC.same_f32(k[0], p[0])
     assert k[1].dtype == torch.bool and bool((k[1] == p[1]).all())
     assert k[0].shape == (B, 2 * patch_size * patch_size)
 
@@ -988,8 +948,8 @@ def test_edge_patches_kernel_matches_jax_reference(dev):
     """K7 on the card against the JAX package's `edge_patches_tiled` on
     every patch case of `tests/gate_cases.py` (the same file): values
     within 1e-5 of max(1, |b|), NaN where JAX has NaN, ok flags equal
-    (`chip_smoke.k7_against_jax`)."""
-    res = C.k7_against_jax(dev)
+    (`gate_cases.k7_against_jax`)."""
+    res = GC.k7_against_jax(dev)
     assert set(res) == set(GC.PATCH_CASES)
     assert all(n == 0 and n_ok == 0 for n, _, n_ok in res.values()), res
 
@@ -1010,7 +970,7 @@ def test_edge_patches_kernel_with_live_mask(dev, name, B, live_kind):
     k = PAT.edge_patches_cuda(*a, **kw, live=live)
     p = PAT.edge_patches_plain(*a, **kw)
     torch.cuda.synchronize()
-    _same_f32(k[0][live], p[0][live])
+    FC.same_f32(k[0][live], p[0][live])
     assert bool((k[1][live] == p[1][live]).all())
 
 
@@ -1038,16 +998,16 @@ def test_edge_patches_kernel_leaves_dead_rows_unwritten(dev, monkeypatch):
     dead = ~live
     assert bool((k[0][dead].view(torch.int32) == sentinel).all())
     assert bool(k[1][dead].all())
-    _same_f32(k[0][live], p[0][live])
+    FC.same_f32(k[0][live], p[0][live])
     assert bool((k[1][live] == p[1][live]).all())
     assert bool((~p[1][live]).any())    # some live sides are not ok
 
 
 def test_dense_gates_and_patches_dispatch_count_one_launch(dev, monkeypatch):
-    s = C.gate_tensors(GC.stereo_case("interior"), dev)
-    a, kw = C.k6_args("stereo", s)
-    t = C.gate_tensors(GC.temporal_case("interior"), dev)
-    at, kwt = C.k6_args("temporal", t)
+    s = GC.gate_tensors(GC.stereo_case("interior"), dev)
+    a, kw = GC.k6_args("stereo", s)
+    t = GC.gate_tensors(GC.temporal_case("interior"), dev)
+    at, kwt = GC.k6_args("temporal", t)
     pa, pkw = _patch_args("interior", 64, dev)
     before = dict(CB.LAUNCHES)
     PAT.dense_gates_stereo(*a, **kw)
@@ -1110,6 +1070,64 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
             assert bool(tg.success)
             qc, qg = int(tc.n_quads), int(tg.n_quads)
             assert min(qc, qg) >= 0.97 * max(qc, qg)
+
+
+# ---- every hand-kernel call of a full-size frame against its twin ----
+# the patch sizes past the default, each at the largest shift the
+# reference's coverage guard admits there (`patches.check_coverage`)
+WIDE = {9: 4.0, 11: 2.9}
+FRAME_CASES = ([(cell, 7, k) for cell in ("kitti.every_frame",
+                                          "euroc.every_frame")
+                for k in FC.FRAME_CALLS]
+               + [("kitti.every_frame", P, k) for P in WIDE
+                  for k in ("K2", "K3", "K6", "K7")])
+
+
+@pytest.fixture(scope="module")
+def frame2_calls(bench_frames):
+    """(cell, P) -> `FC.frame_calls` of VOPipeline(VOConfig(), every_frame)
+    (at P = 9, 11 with the shift of `WIDE`) on the cell's rig and its
+    three bench frames, made once a module."""
+    from vo_bench.harness import spec as SPEC
+    cache = {}
+
+    def get(cell, P):
+        if (cell, P) not in cache:
+            cfg = (VOConfig() if P == 7 else
+                   VOConfig(patch_size=P, orthogonal_shift_mag=WIDE[P]))
+            rig = SPEC.stereo_rig(SPEC.load_cell(cell).config)
+            pipe = PL.VOPipeline(rig, cfg, device="cuda",
+                                 keyframe_policy="every_frame")
+            cache[(cell, P)] = FC.frame_calls(pipe, bench_frames[cell])
+        return cache[(cell, P)]
+    return get
+
+
+@pytest.mark.parametrize("cell,P,kernel", FRAME_CASES)
+def test_frame_kernel_calls_match_twins(dev, frame2_calls, cell, P, kernel):
+    """Each call of `kernel` in frame 2 of a benchmark cell's bench frames
+    (the eager stereo step and the prediction-mode temporal step), made
+    again and held against its plain twin run on the card on the same
+    operands: K1 within rtol 2e-4 / atol 2e-3 and its orientation's 99.9%
+    quantile under 1e-3 rad, K5 as bf16 bit patterns, the rest bit for
+    bit (K2 and K3 on the active lanes, K7's stage-11 call on its live
+    entries). The frame makes the calls `FC.FRAME_CALLS` names, at patch
+    size P; frames 1-2 pass the production guards (a successful, finite
+    pose on >= 500 quads)."""
+    calls, results = frame2_calls(cell, P)
+    for _, tr in results[1:]:
+        assert bool(tr.success) and int(tr.n_quads) >= 500
+        assert bool(torch.isfinite(tr.R).all() and torch.isfinite(tr.t).all())
+    mine = [c for c in calls if c.kernel == kernel]
+    assert len(mine) == len(FC.FRAME_CALLS[kernel])
+    if kernel == "K7":        # stage 11's call alone passes a live mask
+        assert [c.bound()["live"] is not None for c in mine] == [
+            name == "stage-11 centres" for name in FC.FRAME_CALLS["K7"]]
+    for call in mine:
+        assert call.bound().get("patch_size", P) == P
+        got, ref = call.run(), call.twin()
+        torch.cuda.synchronize()
+        FC.assert_matches_twin(call, got, ref)
 
 
 def _on(d, arrays):
@@ -1175,7 +1193,7 @@ def test_estimate_pose_kernels_match_twins_and_launch(dev):
     res = MT.estimate_pose(pq, rig, cfg, seed=5)
     torch.cuda.synchronize()
     assert CB.LAUNCHES["ransac_score"] == 2 and CB.LAUNCHES["pose_gn"] == 4
-    with C.pose_twins():
+    with PC.pose_twins():
         ref = MT.estimate_pose(pq, rig, cfg, seed=5)
     assert bool(res.success) and int(res.inlier_count) > 15000
     assert torch.equal(res.R, ref.R) and torch.equal(res.t, ref.t)
@@ -1191,8 +1209,8 @@ def test_estimate_pose_kernels_match_twins_and_launch(dev):
 def test_estimate_pose_singular_case_on_the_card(dev):
     """The refinement's exactly singular solve: a finite pose, success and
     2 inliers on the card, within 1e-4 of the CPU's
-    (`chip_smoke.singular_on_card`, every seed of tests/pose_cases.py)."""
-    assert C.singular_on_card(dev) == PC.SINGULAR_SEEDS
+    (`pose_cases.singular_on_card`, every seed of tests/pose_cases.py)."""
+    assert PC.singular_on_card(dev) == PC.SINGULAR_SEEDS
 
 
 def test_pose_dispatch(dev, monkeypatch):
@@ -1260,18 +1278,20 @@ def test_run_ba_on_the_card_matches_cpu(dev):
 def test_gn_kernel_bit_for_bit_on_remapped_float_frames(dev):
     """The stage-9 input of a distorted rig: the images are bilinear remaps,
     so float-valued, and the GT supervision has narrowed the rows. The
-    kernel equals its twin bit for bit there too."""
+    kernel equals its twin bit for bit there too. The operands are those
+    the step hands `refine_along_epipolar_batch` (`tests/frame_calls.py`)."""
     import dataclasses
     seq = S.make_sequence(1, 120, 160)
     cam = dataclasses.replace(seq.rig.left,
                               distortion=(-0.05, 0.01, 0.0005, -0.0005))
     rig = dataclasses.replace(seq.rig, left=cam, right=cam)
     f = seq.frames[0]
-    cap = {}
-    PL.build_stereo_step(rig, VOConfig(**SMALL), dev, has_gt=True)(
-        f.left, f.right, f.disparity, np.full(f.left.shape, 255.0, np.float32),
-        gn_capture=cap)
-    a, kw = cap["args"], cap["kwargs"]
+    step = PL.build_stereo_step(rig, VOConfig(**SMALL), dev, has_gt=True)
+    with FC.Recording([(GN, "refine_along_epipolar_batch")]) as calls:
+        step(f.left, f.right, f.disparity,
+             np.full(f.left.shape, 255.0, np.float32))
+    (call,) = calls
+    a, kw = call.args, call.kwargs
     act = kw["active"]
     assert int(act.sum()) > 100
     assert float((a[1] != a[1].round()).float().mean()) > 0.5

@@ -20,7 +20,6 @@ import torch
 import torch.nn.functional as F
 import jax.numpy as jnp
 
-import chip_smoke as C
 from edge_based_visual_odometry_tpu.ops import descriptors as JD
 from edge_based_visual_odometry_tpu.ops import patches as JP
 from edge_based_visual_odometry_tpu_torch import geometry as G
@@ -39,13 +38,13 @@ NCC_TOL, DIST_TOL, PATCH_TOL = 1e-5, 0.05, 1e-5
 
 
 def _near(a, b, mask, tol, relative):
-    n_bad, err = C.gate_errors(a, b, mask, tol, relative)
+    n_bad, err = GC.gate_errors(a, b, mask, tol, relative)
     assert n_bad == 0, f"{n_bad} entries past {tol} (largest {err})"
 
 
 def _stereo(name):
     s = GC.stereo_case(name)
-    a, kw = C.k6_args("stereo", C.gate_tensors(s, CPU))
+    a, kw = GC.k6_args("stereo", GC.gate_tensors(s, CPU))
     return s, a, kw
 
 
@@ -81,7 +80,7 @@ def test_temporal_twin_matches_jax(name):
     the live slots against JAX (the fixture's arrays, which
     `test_jax_reference_file_is_current` recomputes), fills elsewhere."""
     t = GC.temporal_case(name)
-    a, kw = C.k6_args("temporal", C.gate_tensors(t, CPU))
+    a, kw = GC.k6_args("temporal", GC.gate_tensors(t, CPU))
     out = P.dense_gates_temporal_plain(*a, **kw).numpy()
     ref = KJ.temporal(name)
     live = t["cmask"]
@@ -94,7 +93,7 @@ def test_temporal_twin_matches_jax(name):
 @pytest.mark.parametrize("name", GC.GATE_CASES)
 def test_flat_twin_matches_jax(name):
     f = GC.flat_case(name)
-    a, kw = C.k6_args("flat", C.gate_tensors(f, CPU))
+    a, kw = GC.k6_args("flat", GC.gate_tensors(f, CPU))
     out = P.dense_gates_flat_plain(*a, **kw).numpy()
     _, ref = KJ.stereo(name)
     _near(out, ref.reshape(-1), f["live"], NCC_TOL, True)
@@ -122,7 +121,7 @@ def test_twins_match_the_jax_faithful_forms(name):
     """The twins' lane order against the port's `ncc4` (torch's mean and
     sums) and `min_cross_distance_dot` (an einsum) on every slot."""
     s, a, kw = _stereo(name)
-    t = C.gate_tensors(s, CPU)
+    t = GC.gate_tensors(s, CPU)
     j = t["cand"]
     rows = t["l_desc"][:, None].expand(-1, j.shape[1], -1)
     d_lane = P.desc_distance_lanes(rows, t["r_desc"][j])
@@ -205,7 +204,7 @@ def test_k6_pair_model_equals_the_twins_past_p7(name, patch_size):
     """K6's pair arithmetic at 4 samples a lane (P = 9, 11) and the built
     8 slots a step (`_k6_pairs`) bit-equal to the twins on every slot of
     the case made at that P."""
-    t = C.gate_tensors(GC.stereo_case(name, patch_size=patch_size), CPU)
+    t = GC.gate_tensors(GC.stereo_case(name, patch_size=patch_size), CPU)
     j = t["cand"]
     a_pat, a_ok = t["l_pat"][:, None], t["l_ok"][:, None]
     gate, dist = _k6_pairs(a_pat, a_ok, t["r_pat"][j], t["r_ok"][j],
@@ -369,7 +368,7 @@ def test_k6_pair_model_equals_the_twins(name, slots):
     `ncc4_lanes` and `desc_distance_lanes` on every slot of the case, the
     CF patches of the temporal case rounded to bf16 as well."""
     s = GC.stereo_case(name)
-    t = C.gate_tensors(s, CPU)
+    t = GC.gate_tensors(s, CPU)
     j = t["cand"]
     for b in (t["r_pat"], t["r_pat"].to(torch.bfloat16).to(torch.float32)):
         a_pat, a_ok = t["l_pat"][:, None], t["l_ok"][:, None]
@@ -402,7 +401,7 @@ def test_exact_copies_give_distance_zero():
     twin's distance is exactly 0 (JAX's and the einsum's leave up to a few
     ulp of |a|^2 under the sqrt)."""
     s = GC.copies()
-    a, kw = C.k6_args("stereo", C.gate_tensors(s, CPU))
+    a, kw = GC.k6_args("stereo", GC.gate_tensors(s, CPU))
     dist, _ = P.dense_gates_stereo_plain(*a, **kw)
     rows = np.arange(GC.N_ROWS)[:, None]
     exact = s["cmask"] & (s["cand"] == rows) & (rows % 3 < 2)
@@ -464,11 +463,11 @@ def test_cpu_dispatch_never_builds_and_cuda_wrappers_refuse_cpu(monkeypatch):
     before = dict(CB.LAUNCHES)
     _, a, kw = _stereo("interior")
     P.dense_gates_stereo(*a, **kw)
-    t = C.gate_tensors(GC.temporal_case("interior"), CPU)
-    at, kwt = C.k6_args("temporal", t)
+    t = GC.gate_tensors(GC.temporal_case("interior"), CPU)
+    at, kwt = GC.k6_args("temporal", t)
     P.dense_gates_temporal(*at, **kwt)
-    f = C.gate_tensors(GC.flat_case("interior"), CPU)
-    af, kwf = C.k6_args("flat", f)
+    f = GC.gate_tensors(GC.flat_case("interior"), CPU)
+    af, kwf = GC.k6_args("flat", f)
     P.dense_gates_flat(*af, **kwf)
     img, edges = GC.patch_case("interior")
     pa = [torch.from_numpy(x) for x in (img, *edges)] + [GC.P, GC.SHIFT]

@@ -11,7 +11,6 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-import chip_smoke
 from edge_based_visual_odometry_tpu.io import synthetic as JS
 from edge_based_visual_odometry_tpu.models import stereo_matcher as JSM
 from edge_based_visual_odometry_tpu.ops import clustering as JCL
@@ -299,7 +298,7 @@ def test_k4_jax_reference_file_is_current(name):
 def test_twin_within_the_k4_jax_tolerance(name):
     """The twin on the CPU against the JAX fixture with the tolerance K4
     is held to on the card: label, mask and members equal, x / y / theta
-    within `chip_smoke.K4_JAX_ULPS` ulps of max(|a|, |b|, 1)."""
+    within `CC.K4_JAX_ULPS` ulps of max(|a|, |b|, 1)."""
     x, y, th, mask, kw = K4J.inputs(name)
     out = CL.cluster_edges_plain(t(x), t(y), t(th), t(mask), **kw)
     with np.load(K4J.PATH) as ref:
@@ -307,9 +306,9 @@ def test_twin_within_the_k4_jax_tolerance(name):
             np.testing.assert_array_equal(getattr(out, f).numpy(),
                                           ref[K4J.key(name, f)])
         for f in ("x", "y", "theta"):
-            ulps, n_nan = chip_smoke.f32_ulps(getattr(out, f).numpy(),
-                                              ref[K4J.key(name, f)])
-            assert n_nan == 0 and ulps <= chip_smoke.K4_JAX_ULPS, (f, ulps)
+            ulps, n_nan = CC.f32_ulps(getattr(out, f).numpy(),
+                                      ref[K4J.key(name, f)])
+            assert n_nan == 0 and ulps <= CC.K4_JAX_ULPS, (f, ulps)
 
 
 def test_cluster_edges_plain_chunking_changes_nothing():

@@ -7,8 +7,7 @@ collective fails the test instead of the whole suite) and returns each
 rank's result, or raises RuntimeError. Each rank joins a gloo group on a
 FileStore under `tmp_path` (unless `init=False`: the worker then starts
 the group itself) and calls `worker(rank, n_ranks, *args)`. Workers live here, not in the
-test files, so that a rank imports neither JAX nor the JAX package
-(`chip_smoke.py` uses the corridor chain and `spawn` on the card too).
+test files, so that a rank imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations

@@ -16,13 +16,18 @@ the least time its work needs, on one GPU.
      px), every step eager, each call of a kernel wrapper kept with its
      operands (`tests/frame_calls.py`); each kernel must be called as
      often as `FRAME_CALLS` says;
-  5. each call of K1, TOED's NMS kernel and K2-K9 (at every P: K2, K3, K6
-     and K7) made again on its operands and held against its plain twin
+  5. each call of K1, TOED's NMS kernel, K2-K9 and the gather windows'
+     compaction (at every P: K2, K3, K6 and K7) made again on its
+     operands and held against its plain twin
      (`frame_calls.assert_matches_twin`: K1 within rtol 2e-4, K5 as bf16
      bits, the rest bit for bit); its time alone (`graph_ms`) and with
      its wrapper (`cuda_ms`), its bound and the share of it reached, and
-     the twin's time; then the occupancy the built K3, K5, K6 and K7
-     report (`k*_info`).
+     the twin's time; for the compaction also the share of rows with
+     more live slots than it keeps (`rows_over_capacity`), and rows for
+     its calls in the evaluation path's frame (`temporal_gather_mode
+     "reference"`: the temporal call's 576 slots), where the kernel must
+     not be slower than the twin;
+     then the occupancy the built K3, K5, K6 and K7 report (`k*_info`).
 
 It prints a line a call, then one JSON line of the rows, the occupancy
 and frame 4's counts, and last {"ok": true, "device": {...}}. It exits 1
@@ -74,6 +79,16 @@ def nms_work(B, H, W, kept, max_edges):
     the bytes bound it."""
     return 0, (B * 4 * H * W * 3 * 4 + sum(kept) * 4
                + B * max_edges * (4 * 4 + 1) + B * 4)
+
+
+def compact_work(Q, S, A, W, has_priority):
+    """(flops, bytes) of the gather windows' compaction (csrc/
+    compact_candidates.cu) of (Q, S) slots to (Q, W) with A attribute
+    planes: bytes, each slot's mask and priority once (5 B; 1 B with no
+    priority), and each output slot's idx, attributes and mask read at its
+    source slot and written (2 (8 + 4 A + 1) B). Its comparisons are not
+    counted: the bytes bound it."""
+    return 0, Q * S * (5 if has_priority else 1) + Q * W * 2 * (9 + 4 * A)
 
 
 def with_bound(ms, flops, nbytes, fma_free=False):
@@ -151,25 +166,68 @@ def f32_differ(a, b):
 
 def call_work(call, out):
     """(flops, bytes) of one recorded call: what the benchmark counts of
-    its launches, or `nms_work` for the NMS kernel (`out` its EdgeLists)."""
+    its launches, `nms_work` for the NMS kernel (`out` its EdgeLists) or
+    `compact_work` for the compaction."""
     from vo_bench.harness import kernels as KN
 
+    a = call.bound()
     if call.kernel == "NMS":
-        a = call.bound()
         return nms_work(a["Ix"].shape[0], a["img_height"], a["img_width"],
                         [int(e.count) for e in out], a["max_edges"])
+    if call.kernel == "compact":
+        (Q, S), A = a["mask"].shape, a["attrs"].shape[0]
+        return compact_work(Q, S, A, min(a["capacity"], S),
+                            a["priority"] is not None)
     with KN.WorkRecorder() as rec:
         call.run()
     (w,) = rec.work().values()
     return w["flops"], w["bytes"]
 
 
+def rows_over_capacity(call):
+    """The share of a compaction call's rows with more live slots than it
+    keeps: where the order, and not only the packing, decides."""
+    a = call.bound()
+    return float((a["mask"].sum(1) > a["capacity"]).float().mean())
+
+
+def timed_row(call, name, P, card):
+    """One recorded call made again and held against its twin on the same
+    operands (an AssertionError says what differs), then its times alone
+    and with its wrapper, its bound and the twin's time: its row."""
+    from tests import frame_calls as FC
+
+    k = call.kernel
+    out = call.run()
+    FC.assert_matches_twin(call, out, call.twin())
+    row = launch_bound(cuda_ms(call.run, 20), graph_ms(call.run, 20),
+                       *call_work(call, out), fma_free=k in FMA_FREE)
+    row.update(kernel=k, call=name, wrapper=call.name, patch_size=P,
+               bound_us=row["bound_ms"] * 1e3,
+               plain_ms=cuda_ms(call.twin, 1), card=card)
+    extra = ""
+    if k in FMA_FREE:
+        extra = (f" ({row['pct_of_bound_no_fma']:.1f}% of the FMA-free "
+                 f"{row['bound_ms_no_fma'] * 1e3:.1f} us)")
+    if k == "compact":
+        row.update(slots=tuple(call.bound()["mask"].shape),
+                   rows_over_capacity=rows_over_capacity(call))
+        extra = (f"; {row['slots']} slots, rows over capacity "
+                 f"{row['rows_over_capacity']:.3f}")
+    print(f"{k} {name} (P = {P}): {row['launch_ms']:.4f} ms alone, "
+          f"{row['ms']:.4f} ms with the wrapper; bound "
+          f"{row['bound_us']:.1f} us ({row['bound_by']}: "
+          f"{row['flops']} flop, {row['bytes']} B), "
+          f"{row['pct_of_bound']:.1f}% of it alone{extra}; twin "
+          f"{row['plain_ms']:.3f} ms [{card}]")
+    return row
+
+
 def timed_rows(calls, P, kernels, card, bad):
-    """A row for each call of `kernels` (`FC.FRAME_CALLS` names them): the
-    call made again and held against its twin on the same operands, then
-    its times alone and with its wrapper, its bound and the twin's time.
-    A kernel called another number of times, or a call whose output
-    differs from its twin's, is added to `bad` and gets no row."""
+    """A row for each call of `kernels` (`FC.FRAME_CALLS` names them),
+    from `timed_row`. A kernel called another number of times, or a call
+    whose output differs from its twin's, is added to `bad` and gets no
+    row."""
     from tests import frame_calls as FC
 
     rows = []
@@ -180,28 +238,49 @@ def timed_rows(calls, P, kernels, card, bad):
                        f"{len(FC.FRAME_CALLS[k])}")
             continue
         for name, call in zip(FC.FRAME_CALLS[k], mine):
-            out = call.run()
             try:
-                FC.assert_matches_twin(call, out, call.twin())
+                rows.append(timed_row(call, name, P, card))
             except AssertionError as e:
                 bad.append(f"{k} {name} (P = {P}) differs from its twin: "
                            f"{e}")
-                continue
-            row = launch_bound(cuda_ms(call.run, 20), graph_ms(call.run, 20),
-                               *call_work(call, out), fma_free=k in FMA_FREE)
-            row.update(kernel=k, call=name, wrapper=call.name, patch_size=P,
-                       bound_us=row["bound_ms"] * 1e3,
-                       plain_ms=cuda_ms(call.twin, 1), card=card)
-            nf = (f" ({row['pct_of_bound_no_fma']:.1f}% of the FMA-free "
-                  f"{row['bound_ms_no_fma'] * 1e3:.1f} us)" if k in FMA_FREE
-                  else "")
-            print(f"{k} {name} (P = {P}): {row['launch_ms']:.4f} ms alone, "
-                  f"{row['ms']:.4f} ms with the wrapper; bound "
-                  f"{row['bound_us']:.1f} us ({row['bound_by']}: "
-                  f"{row['flops']} flop, {row['bytes']} B), "
-                  f"{row['pct_of_bound']:.1f}% of it alone{nf}; twin "
-                  f"{row['plain_ms']:.3f} ms [{card}]")
-            rows.append(row)
+    return rows
+
+
+def evaluation_compact_rows(rig, frames, card, bad):
+    """The compaction's calls on frame 2 in the evaluation path's gather
+    (VOConfig(temporal_gather_mode="reference"): the temporal call's
+    `quad_gather_slots` = 576 slots a row around the KF edges), each from
+    `timed_row`; `bad` gets a call that differs from its twin or is
+    slower than it."""
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+    from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
+    from tests import frame_calls as FC
+
+    pipe = PL.VOPipeline(rig, VOConfig(temporal_gather_mode="reference"),
+                         device="cuda", keyframe_policy="every_frame")
+    with FC.Recording([(GRID, "compact_candidates_cuda")]) as calls:
+        for left, right in frames[:3]:
+            del calls[:]
+            pipe.run_frame(left, right)
+    torch.cuda.synchronize()
+    names = FC.FRAME_CALLS["compact"]
+    if len(calls) != len(names):
+        bad.append(f"evaluation: {len(calls)} calls of compact, not "
+                   f"{len(names)}")
+        return []
+    rows = []
+    for name, call in zip(names, calls):
+        try:
+            rows.append(timed_row(call, f"{name} (evaluation)", 7, card))
+        except AssertionError as e:
+            bad.append(f"compact {name} (evaluation) differs from its twin: "
+                       f"{e}")
+    slow = [r for r in rows if r["ms"] > r["plain_ms"]]
+    if slow:
+        bad.append(f"compact slower than its twin at {slow[0]['slots']} "
+                   f"slots: {slow[0]['ms']:.4f} against "
+                   f"{slow[0]['plain_ms']:.4f} ms")
     return rows
 
 
@@ -286,6 +365,7 @@ def main():
         rows += timed_rows(calls, P, FC.FRAME_CALLS if shift is None
                            else WIDE_KERNELS, card, bad)
         del pipe, calls
+    rows += evaluation_compact_rows(seq.rig, frames, card, bad)
     occupancy = {"K3": GN.k3_info(), "K5": DESC.k5_info(),
                  "K6": PAT.k6_info(), "K7": PAT.k7_info()}
     for k, info in occupancy.items():

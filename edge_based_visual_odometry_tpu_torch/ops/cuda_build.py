@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
             "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
             "dense_gates": 0, "edge_patches": 0, "ransac_score": 0,
-            "pose_gn": 0, "toed_nms_compact": 0}
+            "pose_gn": 0, "toed_nms_compact": 0, "compact_candidates": 0}
 # step -> its calls on a CUDA device since the last reset_launch_counts():
 # captured into a graph, replayed from it, or run eagerly
 GRAPH_STEPS = {step: {"capture": 0, "replay": 0, "eager": 0}
@@ -100,6 +100,9 @@ _SIGNATURES = {
     # K9: R, t, K, gamma, cf, valid, Q, thresh, z_min, threads, per_thread,
     # partial (and ticket), out, stream
     "pose_gn_launch": [_P] * 6 + [_I, _F, _F, _I, _I] + [_P] * 3,
+    # the gather windows' compaction: idx, attrs, mask, priority (or
+    # null), Q, S, A, W, outputs, stream
+    "compact_candidates_launch": [_P] * 4 + [_I] * 4 + [_P] * 4,
 }
 
 _lock = threading.Lock()

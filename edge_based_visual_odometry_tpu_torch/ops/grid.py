@@ -12,6 +12,11 @@ every in-range span.
 
 Orderings use stable torch.sort, which equals the reference's stable
 argsort / top_k order (ties toward the lower index).
+
+`compact_candidates_attrs` keeps the first slots of each row of a gather
+window in priority order: on a CUDA tensor the hand-written kernel
+`csrc/compact_candidates.cu`, which gives the plain twin's outputs bit for
+bit; on a CPU tensor the twin `compact_candidates_plain`.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 
 
 class SortedGrid(NamedTuple):
@@ -89,11 +96,17 @@ def query_sorted_grid_attrs(grid: SortedGrid, qx, qy, rx: float, ry: float,
     return idx, g[1:], mask
 
 
-def compact_candidates_attrs(idx, attrs, mask, capacity: int, priority=None):
+# slots a row `csrc/compact_candidates.cu` takes (a warp keeps its row's
+# live keys and slots, 8 B a slot, and a histogram in shared memory)
+MAX_SLOTS = 4096
+
+
+def compact_candidates_plain(idx, attrs, mask, capacity: int, priority=None):
     """Compact (Q, S) masked slots to (Q, capacity): valid slots first, in
     ascending `priority` (stable; original slot order when None), then the
     masked-out slots in slot order. Overflow beyond capacity is dropped.
-    Returns (idx, attrs (A, Q, capacity), mask)."""
+    Returns (idx, attrs (A, Q, capacity), mask). The plain twin of
+    `csrc/compact_candidates.cu`, and the CPU path."""
     if priority is None:
         key = (~mask).to(torch.float32)
     else:
@@ -102,3 +115,60 @@ def compact_candidates_attrs(idx, attrs, mask, capacity: int, priority=None):
     return (torch.gather(idx, 1, order),
             torch.gather(attrs, 2, order[None].expand(attrs.shape[0], -1, -1)),
             torch.gather(mask, 1, order))
+
+
+def compact_candidates_cuda(idx, attrs, mask, capacity: int, priority=None):
+    """The hand-written kernel (csrc/compact_candidates.cu); the contract
+    of `compact_candidates_plain` as `torch.sort` keeps it on the card:
+    each row's slots ordered by (key, slot), the key in the order cub's
+    radix sort gives floats (-0.0 as +0.0, NaNs by their bits), the first
+    min(capacity, S) kept. idx (Q, S) int64, attrs (A, Q, S) float32, mask
+    (Q, S) bool, priority (Q, S) float32 or None, contiguous CUDA tensors;
+    S at most `MAX_SLOTS`. One launch (none where Q or the width is 0)."""
+    if not mask.is_cuda:
+        raise ValueError(f"compact_candidates_cuda: needs a CUDA tensor, got "
+                         f"one on {mask.device}")
+    if mask.dim() != 2 or attrs.dim() != 3:
+        raise ValueError(f"mask (Q, S) and attrs (A, Q, S) expected, got "
+                         f"{tuple(mask.shape)} and {tuple(attrs.shape)}")
+    Q, S = mask.shape
+    A = attrs.shape[0]
+    dev = mask.device
+    CB.require(idx, "idx", torch.int64, (Q, S), dev)
+    CB.require(attrs, "attrs", torch.float32, (A, Q, S), dev)
+    CB.require(mask, "mask", torch.bool, (Q, S), dev)
+    if priority is not None:
+        CB.require(priority, "priority", torch.float32, (Q, S), dev)
+    C = int(capacity)
+    if C < 0:
+        raise ValueError(f"capacity = {C}: must be >= 0")
+    if S > MAX_SLOTS:
+        raise ValueError(f"{S} slots a row: the kernel takes at most "
+                         f"{MAX_SLOTS}")
+    W = min(C, S)
+    out_idx = torch.empty((Q, W), dtype=torch.int64, device=dev)
+    out_attrs = torch.empty((A, Q, W), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((Q, W), dtype=torch.bool, device=dev)
+    if Q == 0 or W == 0:
+        return out_idx, out_attrs, out_mask
+    lib = CB.lib()
+    with torch.cuda.device(dev):
+        err = lib.compact_candidates_launch(
+            idx.data_ptr(), attrs.data_ptr(), mask.data_ptr(),
+            None if priority is None else priority.data_ptr(), Q, S, A, W,
+            out_idx.data_ptr(), out_attrs.data_ptr(), out_mask.data_ptr(),
+            CB.stream_ptr(dev))
+    CB.check(err, "compact_candidates")
+    CB.LAUNCHES["compact_candidates"] += 1
+    return out_idx, out_attrs, out_mask
+
+
+def compact_candidates_attrs(idx, attrs, mask, capacity: int, priority=None):
+    """`compact_candidates_plain`'s compaction: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    if mask.is_cuda:
+        return compact_candidates_cuda(idx, attrs, mask, capacity, priority)
+    if mask.device.type != "cpu":
+        raise ValueError(f"compact_candidates_attrs: unsupported device "
+                         f"{mask.device}")
+    return compact_candidates_plain(idx, attrs, mask, capacity, priority)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1, TOED's NMS and compaction, K2, K3,
-K3's both-sides launch, K4, K5, K6's three entries, K7, K8, K9) against
+K3's both-sides launch, K4, K5, K6's three entries, K7, K8, K9, the
+gather windows' compaction) against
 their plain-PyTorch twins, on the card: on seeded cases, and on every
 call of a full-size frame of each benchmark cell (`tests/frame_calls.py`);
 and the paths through them (the pipeline, BA, the CLI, the NCCL pair step
@@ -25,6 +26,7 @@ from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
+from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
@@ -32,6 +34,7 @@ from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
 from tests import cluster_cases as CC
+from tests import compact_cases as CPC
 from tests import descriptor_cases as DC
 from tests import frame_calls as FC
 from tests import gate_cases as GC
@@ -1060,6 +1063,8 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
     # no prescore); K9: its 4 refinement steps
     assert n_gpu["ransac_score"] == 2
     assert n_gpu["pose_gn"] == 2 * 4
+    # the gather windows' compaction: once in each stereo and temporal step
+    assert n_gpu["compact_candidates"] == 3 + 2
     for (fc, tc), (fg, tg) in zip(cpu, gpu):
         a = fc.stereo_metrics.numpy()
         b = fg.stereo_metrics.cpu().numpy()
@@ -1070,6 +1075,142 @@ def test_pipeline_gpu_matches_cpu_and_launches_kernels(dev):
             assert bool(tg.success)
             qc, qg = int(tc.n_quads), int(tg.n_quads)
             assert min(qc, qg) >= 0.97 * max(qc, qg)
+
+
+# ---- the gather windows' compaction (csrc/compact_candidates.cu) ----
+# the callers' (S, C, A): the dry run's gathers, the stereo and temporal
+# calls of every frame, the evaluation path's temporal call
+COMPACT_SHAPES = {"dry_run": (32, 8, 3), "stereo": (160, 32, 3),
+                  "temporal": (195, 32, 6), "evaluation": (576, 32, 6)}
+
+
+def _compact_case(dev, Q, S, A, seed, **kw):
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in CPC.make_case(Q, S, A, seed, **kw)]
+
+
+def _compact_same(idx, attrs, mask, C, pri):
+    got = GRID.compact_candidates_cuda(idx, attrs, mask, C, pri)
+    ref = GRID.compact_candidates_plain(idx, attrs, mask, C, pri)
+    torch.cuda.synchronize()
+    FC.assert_compact_same(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("priority", ["random", "ties", "special", "nans",
+                                      None])
+@pytest.mark.parametrize("shape", sorted(COMPACT_SHAPES))
+def test_compact_kernel_matches_twin_bit_for_bit(dev, shape, priority):
+    """4,096 rows, each with its own live share, at a caller's (S, C, A),
+    against the twin on the card on every output slot, the masked tail
+    included. `special` puts live keys of +inf, +NaN, -0.0, +0.0 and at
+    or past 3.0e38 on a quarter of the slots, `nans` NaNs of both signs
+    and other payloads too: the kernel orders them as torch.sort's radix
+    sort does there (-0.0 as +0.0, NaNs by their bits)."""
+    S, C, A = COMPACT_SHAPES[shape]
+    idx, attrs, mask, pri = _compact_case(dev, 4096, S, A, S + C,
+                                          priority=priority)
+    _compact_same(idx, attrs, mask, C, pri)
+
+
+@pytest.mark.parametrize("S,C", [(1, 1), (33, 32), (160, 1), (160, 160),
+                                 (195, 400), (576, 576), (1024, 32),
+                                 (GRID.MAX_SLOTS, 32)])
+def test_compact_kernel_other_widths(dev, S, C):
+    """Rows of 1 to `MAX_SLOTS` slots, capacities of 1 to past S (the
+    width min(C, S)), live keys of every kind."""
+    idx, attrs, mask, pri = _compact_case(dev, 256, S, 3, S, priority="nans")
+    _compact_same(idx, attrs, mask, C, pri)
+
+
+@pytest.mark.parametrize("live_p", [0.0, 1.0])
+@pytest.mark.parametrize("priority", ["ties", None])
+def test_compact_kernel_all_masked_and_all_live(dev, live_p, priority):
+    idx, attrs, mask, pri = _compact_case(dev, 1024, 195, 6, 4,
+                                          live_p=live_p, priority=priority)
+    got = _compact_same(idx, attrs, mask, 32, pri)
+    assert bool((got[2] == bool(live_p)).all())
+
+
+def test_compact_wrapper_refuses_operands(dev):
+    """Other dtypes, shapes or devices, non-contiguous operands, more
+    than `MAX_SLOTS` slots and a negative capacity raise ValueError."""
+    idx, attrs, mask, pri = _compact_case(dev, 64, 160, 3, 0)
+    GRID.compact_candidates_cuda(idx, attrs, mask, 32, pri)
+    bad = [(idx.int(), attrs, mask, 32, pri),
+           (idx, attrs.double(), mask, 32, pri),
+           (idx, attrs, mask.to(torch.uint8), 32, pri),
+           (idx, attrs, mask, 32, pri.double()),
+           (idx, attrs, mask, 32, pri.cpu()),
+           (idx.cpu(), attrs, mask, 32, pri),
+           (idx[:, :80], attrs, mask, 32, pri),
+           (idx, attrs[:, :32], mask, 32, pri),
+           (idx, attrs[0], mask, 32, pri),
+           (idx.t().contiguous().t(), attrs, mask, 32, pri),
+           (idx, attrs.transpose(1, 2).contiguous().transpose(1, 2), mask,
+            32, pri),
+           (idx, attrs, mask, 32, pri.t().contiguous().t()),
+           (idx, attrs, mask, -1, pri),
+           (idx.cpu(), attrs.cpu(), mask.cpu(), 32, pri.cpu())]
+    for k, args in enumerate(bad):
+        with pytest.raises(ValueError):
+            GRID.compact_candidates_cuda(*args)
+            pytest.fail(f"case {k} was taken")
+    wide = _compact_case(dev, 4, GRID.MAX_SLOTS + 1, 3, 0)
+    with pytest.raises(ValueError, match="slots a row"):
+        GRID.compact_candidates_cuda(*wide[:3], 32, wide[3])
+
+
+def test_compact_dispatch_counts_one_launch(dev):
+    """`compact_candidates_attrs` on the card launches the kernel once a
+    call, and not where the output is empty (no rows, capacity 0)."""
+    idx, attrs, mask, pri = _compact_case(dev, 64, 195, 6, 1)
+    before = CB.LAUNCHES["compact_candidates"]
+    got = GRID.compact_candidates_attrs(idx, attrs, mask, 32, priority=pri)
+    assert CB.LAUNCHES["compact_candidates"] == before + 1
+    FC.assert_compact_same(got, GRID.compact_candidates_plain(
+        idx, attrs, mask, 32, pri))
+    for args, shape in (((idx[:0], attrs[:, :0], mask[:0], 32, pri[:0]),
+                         (0, 32)),
+                        ((idx, attrs, mask, 0, pri), (64, 0))):
+        out = GRID.compact_candidates_attrs(*args)
+        assert tuple(out[0].shape) == shape and out[1].shape[0] == 6
+        FC.assert_compact_same(out, GRID.compact_candidates_plain(*args))
+    assert CB.LAUNCHES["compact_candidates"] == before + 1
+
+
+def test_frame_replay_launches_no_long_row_radix_sort(dev):
+    """Frame 4 of `make_sequence(5, 376, 1241)` through VOPipeline(
+    VOConfig(), every_frame), both steps replaying their graphs: its
+    trace holds the compaction kernel twice (stereo, temporal) and no
+    `radixSortKVInPlace` of rows longer than 32 keys. The one left,
+    `radixSortKVInPlace<2, -1, 16, 2, float, long>` (rows padded to 32
+    keys), is `_bnb_keep`'s 32-slot rows: 4 calls a frame."""
+    from edge_based_visual_odometry_tpu_torch.utils import timing
+
+    seq = S.make_sequence(5, 376, 1241)
+    frames = [(_u8(f.left), _u8(f.right)) for f in seq.frames]
+    pipe = PL.VOPipeline(seq.rig, VOConfig(), device="cuda",
+                         keyframe_policy="every_frame")
+    for left, right in frames[:4]:
+        pipe.run_frame(left, right)
+    torch.cuda.synchronize()
+    CB.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pipe.run_frame(*frames[4])
+        torch.cuda.synchronize()
+    replay = dict(capture=0, replay=1, eager=0)
+    assert CB.GRAPH_STEPS == {"stereo_step": replay, "temporal_step": replay}
+    assert CB.LAUNCHES["compact_candidates"] == 2
+    ops = {e.key: e.count for e in timing.device_ops(
+        prof, torch.autograd.DeviceType.CUDA)}
+    assert sum(n for k, n in ops.items()
+               if "compact_candidates_kernel" in k) == 2, ops
+    radix = {k: n for k, n in ops.items() if "radixSortKVInPlace" in k}
+    assert all(k.startswith("void at::native::radixSortKVInPlace<2, -1, 16, "
+                            "2, float, long") for k in radix), radix
+    assert sum(radix.values()) == 4, radix
 
 
 # ---- every hand-kernel call of a full-size frame against its twin ----

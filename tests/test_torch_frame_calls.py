@@ -102,6 +102,12 @@ def _k1_fields():
     return ix, iy, 3.0 + ix, th
 
 
+def _compact_out():
+    g = torch.Generator().manual_seed(1)
+    return (torch.arange(8).reshape(2, 4), torch.rand(3, 2, 4, generator=g),
+            torch.tensor([[True, True, False, False]] * 2))
+
+
 @pytest.mark.parametrize("name,ref,bad", [
     ("toed_gradient_field_cuda", _k1_fields(),
      lambda f: (f[0] + 0.01, *f[1:])),
@@ -112,12 +118,16 @@ def _k1_fields():
      (torch.tensor([1.0, float("nan")]), torch.tensor([float("nan"), 0.5])),
      lambda o: (_flip(o[0]), o[1])),
     ("ransac_counts_cuda", torch.arange(6, dtype=torch.int32), _flip),
-    ("pose_gn_normal_equations_cuda", torch.rand(28), _flip)])
+    ("pose_gn_normal_equations_cuda", torch.rand(28), _flip),
+    ("compact_candidates_cuda", _compact_out(),
+     lambda o: (o[0], _flip(o[1]), o[2])),
+    ("compact_candidates_cuda", _compact_out(),
+     lambda o: (o[0], o[1], ~o[2]))])
 def test_twin_check_passes_equal_and_fails_on_a_difference(name, ref, bad):
     """`assert_matches_twin` on outputs in each kernel's form: equal ones
     pass, a difference past the kernel's tolerance fails (K1: Ix past
     rtol 2e-4 / atol 2e-3, the orientation past 1e-3 rad; the others one
-    bit)."""
+    bit, or a flipped flag of the compaction's mask)."""
     call = FC.Call(None, name, lambda *a, **kw: None, (), {})
     FC.assert_matches_twin(call, ref, ref)
     with pytest.raises(AssertionError):

@@ -33,12 +33,22 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from edge_based_visual_odometry_tpu_torch.config import StereoRig, VOConfig
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
 from edge_based_visual_odometry_tpu_torch.models.types import resolve_device
+from edge_based_visual_odometry_tpu_torch.utils.timing import span
 
 # the reduced capacities of the reference's small dryrun
 DRYRUN_CFG = dict(max_edges=512, max_candidates=8, gather_slots=32,
                   max_mates=256, max_refine_pairs=512, max_quad_candidates=8,
                   quad_gather_slots=80, ransac_max_iterations=64,
                   gn_max_iter=3)
+
+# the sharded pair step's collectives on this rank since the last
+# reset_exchanges(): the calls of each, and the bytes this rank put in
+EXCHANGES = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+
+
+def reset_exchanges():
+    for k in EXCHANGES:
+        EXCHANGES[k] = 0
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "frame",
@@ -171,7 +181,15 @@ def build_pair_step(rig: StereoRig, cfg: VOConfig, device="cuda"):
     return one_pair
 
 
+def _all_reduce_sum(x: torch.Tensor, group) -> None:
+    EXCHANGES["all_reduce"] += 1
+    EXCHANGES["bytes"] += x.nbytes
+    dist.all_reduce(x, group=group)
+
+
 def _all_gather_rows(x: torch.Tensor, group, n_ranks: int) -> torch.Tensor:
+    EXCHANGES["all_gather"] += 1
+    EXCHANGES["bytes"] += x.nbytes
     parts = [torch.empty_like(x) for _ in range(n_ranks)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
@@ -183,28 +201,42 @@ def build_sharded_pair_step(rig: StereoRig, cfg: VOConfig,
     pairs, the same number on every rank (its rank-major block of the
     global batch: leading axis of every argument); every rank gets back
     the PairStepOutput of the global batch, and `mean_inlier_ratio` is an
-    all-reduce (sum over the ranks, divided by the global batch)."""
+    all-reduce (sum over the ranks, divided by the global batch).
+
+    A call is the span `vo/pair_step`: `vo/pair.work`, the rank's pairs
+    one after another, then `vo/pair.exchange`, one all-reduce of (the
+    ratios' sum, the pair count), the host's read of the count
+    (`vo/wait.pair_count`: the rank's queued work and the wait for the
+    slowest rank end there) and five all-gathers (R, t, ratio, the two
+    mate counts). `EXCHANGES` counts each collective and its bytes."""
     device = local_device(mesh)
     one_pair = build_pair_step(rig, cfg, device)
     group = mesh.get_group()
     n_ranks = mesh.size()
 
     def step(kf_l, kf_r, cf_l, cf_r, rel_R0, rel_t0, seeds):
-        rows = [one_pair(*(a[i] for a in (kf_l, kf_r, cf_l, cf_r, rel_R0,
-                                          rel_t0, seeds)))
-                for i in range(len(seeds))]
-        R, t, ratio, n_kf, n_cf = (torch.stack(c) for c in zip(*rows))
-        total = torch.stack([ratio.sum(), torch.tensor(
-            float(len(rows)), device=device)])
-        dist.all_reduce(total, group=group)
-        if int(total[1]) != len(rows) * n_ranks:
-            raise ValueError(f"sharded pair step: {len(rows)} pairs on this "
-                             f"rank, {int(total[1])} over {n_ranks} ranks; "
-                             f"every rank takes the same number")
-        R, t, ratio, n_kf, n_cf = (
-            _all_gather_rows(x, group, n_ranks)
-            for x in (R, t, ratio, n_kf.to(torch.int32),
-                      n_cf.to(torch.int32)))
+        with span("pair_step"):
+            with span("pair.work"):
+                rows = [one_pair(*(a[i] for a in (kf_l, kf_r, cf_l, cf_r,
+                                                  rel_R0, rel_t0, seeds)))
+                        for i in range(len(seeds))]
+                R, t, ratio, n_kf, n_cf = (torch.stack(c)
+                                           for c in zip(*rows))
+            with span("pair.exchange"):
+                total = torch.stack([ratio.sum(), torch.tensor(
+                    float(len(rows)), device=device)])
+                _all_reduce_sum(total, group)
+                with span("wait.pair_count"):
+                    count = int(total[1])
+                if count != len(rows) * n_ranks:
+                    raise ValueError(
+                        f"sharded pair step: {len(rows)} pairs on this "
+                        f"rank, {count} over {n_ranks} ranks; every rank "
+                        f"takes the same number")
+                R, t, ratio, n_kf, n_cf = (
+                    _all_gather_rows(x, group, n_ranks)
+                    for x in (R, t, ratio, n_kf.to(torch.int32),
+                              n_cf.to(torch.int32)))
         return PairStepOutput(R, t, ratio, n_kf, n_cf, total[0] / total[1])
 
     return step

@@ -6,10 +6,11 @@ scripts/run_multihost_torch.py) on the CPU: gloo groups of spawned ranks
     frames (make_sequence(2, 64, 96), the small config of
     tests/test_parallel.py): mates within 0.97, pose error against the
     synthetic GT within the reference's + 0.1 deg / + 10 mm;
-  - the sharded pair step on 2 ranks against the single-process loop
-    (R within 1e-5, inlier ratio within 1e-6, the bounds of
-    tests/test_parallel.py), identical seeds giving identical rows, the
-    mean equal on both ranks;
+  - the sharded pair step on 2 and 4 ranks against the single-process
+    loop, bit for bit, identical seeds giving identical rows, the mean
+    equal on every rank; its exchange counter (1 all-reduce and 5
+    all-gathers a call) and its spans (nested as PERF.md's table has
+    them, outputs bit-identical with spans on and off);
   - the sharded windowed BA at 2 and 4 ranks against one device on the
     8-keyframe corridor chain (tests/test_window_ba_drift.py), 1e-4;
   - dryrun_multichip(2), and the multi-host harness in one process and on
@@ -67,26 +68,68 @@ def test_pair_step_matches_jax():
                 <= np.linalg.norm(ref[1] - t_gt) + 0.01)
 
 
-def test_sharded_pair_step_matches_single(tmp_path):
-    r0, r1 = TR.spawn(TR.pair_step_worker, 2, tmp_path, 4)
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_sharded_pair_step_matches_single(tmp_path, n_ranks):
+    """Two pairs a rank: every rank's gathered rows are the single-process
+    loop's over the global batch, in rank-major order, bit for bit."""
+    n_global = 2 * n_ranks
+    res = TR.spawn(TR.pair_step_worker, n_ranks, tmp_path, n_global)
+    r0 = res[0]
     for name in ("same", "distinct"):
         single = r0[name + "_single"]
-        for r in (r0, r1):
+        for r in res:
             out = r[name]
-            assert out["R"].shape == (4, 3, 3)
-            np.testing.assert_allclose(out["R"], single[0], atol=1e-5)
-            np.testing.assert_allclose(out["t"], single[1], atol=1e-5)
-            np.testing.assert_allclose(out["inlier_ratio"], single[2],
-                                       atol=1e-6)
-            np.testing.assert_array_equal(out["n_mates_kf"], single[3])
-            np.testing.assert_array_equal(out["n_mates_cf"], single[4])
+            assert out["R"].shape == (n_global, 3, 3)
+            for k, ref in zip(("R", "t", "inlier_ratio", "n_mates_kf",
+                               "n_mates_cf"), single):
+                np.testing.assert_array_equal(out[k], ref, err_msg=k)
             np.testing.assert_allclose(out["mean_inlier_ratio"],
                                        single[2].mean(), atol=1e-6)
-        assert r0[name]["mean_inlier_ratio"] == r1[name]["mean_inlier_ratio"]
+            assert out["mean_inlier_ratio"] == r0[name]["mean_inlier_ratio"]
     # identical inputs + identical seeds -> identical rows
     same = r0["same"]["R"]
-    for k in range(1, 4):
-        np.testing.assert_allclose(same[k], same[0], atol=1e-6)
+    for k in range(1, n_global):
+        np.testing.assert_array_equal(same[k], same[0])
+
+
+@pytest.fixture(scope="module")
+def pair_spans(tmp_path_factory):
+    return TR.spawn(TR.pair_spans_worker, 2,
+                    tmp_path_factory.mktemp("pair_spans"))
+
+
+def test_exchanges_count_one_all_reduce_and_five_all_gathers(pair_spans):
+    """Two calls of one pair a rank: 2 all-reduces of (sum, count) and 10
+    all-gathers (R, t, ratio, two mate counts), 68 bytes a call."""
+    per_call = 2 * 4 + (9 + 3 + 1) * 4 + 2 * 4
+    for r in pair_spans:
+        assert r["counts"] == {"all_reduce": 2, "all_gather": 10,
+                               "bytes": 2 * per_call}
+
+
+def test_pair_step_spans_nest_and_leave_outputs_bit_identical(pair_spans):
+    """With spans on, a call records `vo/pair_step` once at the top,
+    `vo/pair.work` (its stereo and temporal steps inside) and
+    `vo/pair.exchange` (`vo/wait.pair_count` inside) within it, as
+    PERF.md's span table has them; its outputs are the spans-off
+    call's, bit for bit."""
+    from tests.test_torch_trace import _parents, documented
+
+    doc = documented()
+    for r in pair_spans:
+        for k, v in r["off"][1].items():
+            np.testing.assert_array_equal(r["on"][k], v, err_msg=k)
+        spans = r["spans"]
+        parents = [None if p is None else spans[p][0]
+                   for p in _parents(spans)]
+        named = [(s[0], p) for s, p in zip(spans, parents)]
+        for name in ("pair_step", "pair.work", "pair.exchange",
+                     "wait.pair_count"):
+            assert [p for n, p in named if n == name] == [doc[name]], name
+        assert doc["pair_step"] is None
+        inside_work = [n for n, p in named if p == "pair.work"]
+        assert sorted(inside_work) == ["stereo_step", "stereo_step",
+                                       "temporal_step"]
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4])

@@ -53,6 +53,9 @@ TEMPORAL_ONLY = ("temporal_step", "match_temporal", "lift_quads",
                  "wait.keyframe", "window_ba", "ba.", "wait.ba_")
 # spans that run only on a rig with a distorted camera
 DISTORTED_ONLY = ("undistort",)
+# spans of the sharded pair step, which no frame runs
+# (tests/test_torch_parallel.py holds them)
+PAIR_ONLY = ("pair_step", "pair.", "wait.pair_count")
 
 
 def documented():
@@ -144,7 +147,7 @@ def test_documented_table_is_well_formed():
     assert all(p is None or p in doc for p in doc.values())
     waits = {n for n in doc if n.startswith("wait.")}
     assert waits == {"wait.success", "wait.keyframe", "wait.upload",
-                     "wait.ba_sync", "wait.ba_readback"}
+                     "wait.ba_sync", "wait.ba_readback", "wait.pair_count"}
 
 
 def test_every_span_once_a_frame_where_its_stage_runs(runs):
@@ -162,7 +165,7 @@ def test_every_span_once_a_frame_where_its_stage_runs(runs):
         assert len(names) == len(set(names)), f"frame {k}: {names}"
         expected = {n for n in doc
                     if (k > 0 or not n.startswith(TEMPORAL_ONLY))
-                    and not n.startswith(DISTORTED_ONLY)}
+                    and not n.startswith(DISTORTED_ONLY + PAIR_ONLY)}
         assert set(names) == expected, (
             k, sorted(set(names) ^ expected))
 

@@ -290,3 +290,61 @@ def multihost_worker(rank, n_ranks, store):
                  "--coordinator", f"file://{store}",
                  "--num_processes", str(n_ranks),
                  "--process_id", str(rank)])
+
+
+def pair_spans_worker(rank, n_ranks):
+    """One pair a rank through the sharded step: twice with spans off
+    (the collectives counted), then once with spans on under the
+    profiler; returns the counts, the outputs and the trace's `vo/`
+    spans as (name, start, end)."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from edge_based_visual_odometry_tpu_torch.config import VOConfig
+    from edge_based_visual_odometry_tpu_torch.parallel import mesh as PM
+    from edge_based_visual_odometry_tpu_torch.utils import timing as T
+
+    rig, args = _small_pairs(n_ranks)
+    seeds = np.arange(n_ranks, dtype=np.int32)
+    mine = [a[rank:rank + 1] for a in args] + [seeds[rank:rank + 1]]
+    step = PM.build_sharded_pair_step(rig, VOConfig(**PM.DRYRUN_CFG),
+                                      PM.make_mesh(device="cpu"))
+    PM.reset_exchanges()
+
+    def host(out):
+        return {k: v.numpy() for k, v in out._asdict().items()}
+    off = [host(step(*mine)) for _ in range(2)]
+    counts = dict(PM.EXCHANGES)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with T.spans_on():
+            on = host(step(*mine))
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    spans = sorted(((e["name"][len(T.SPAN_PREFIX):], float(e["ts"]),
+                     float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"
+                    and e["name"].startswith(T.SPAN_PREFIX)),
+                   key=lambda s: (s[1], -s[2]))
+    return dict(counts=counts, off=off, on=on, spans=spans)
+
+
+def failing_rank_worker(rank, n_ranks, out_dir, how, culprit):
+    """A group for the benchmark's supervisor in which rank `culprit`
+    raises (`how` "raises": the others wait on, as in a collective) or
+    sleeps past any deadline (`how` "sleeps": the others finish)."""
+    if rank == culprit:
+        if how == "raises":
+            raise RuntimeError(f"rank {rank} fails on purpose")
+        time.sleep(3600)
+    if how == "raises":
+        time.sleep(3600)
+    return rank

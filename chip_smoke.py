@@ -16,18 +16,19 @@ the least time its work needs, on one GPU.
      px), every step eager, each call of a kernel wrapper kept with its
      operands (`tests/frame_calls.py`); each kernel must be called as
      often as `FRAME_CALLS` says;
-  5. each call of K1, TOED's NMS kernel, K2-K9 and the gather windows'
-     compaction (at every P: K2, K3, K6 and K7) made again on its
-     operands and held against its plain twin
-     (`frame_calls.assert_matches_twin`: K1 within rtol 2e-4, K5 as bf16
-     bits, the rest bit for bit); its time alone (`graph_ms`) and with
-     its wrapper (`cuda_ms`), its bound and the share of it reached, and
-     the twin's time; for the compaction also the share of rows with
-     more live slots than it keeps (`rows_over_capacity`), and rows for
-     its calls in the evaluation path's frame (`temporal_gather_mode
-     "reference"`: the temporal call's 576 slots), where the kernel must
-     not be slower than the twin;
-     then the occupancy the built K3, K5, K6 and K7 report (`k*_info`).
+  5. each call of K1, TOED's NMS kernel, K2-K9, the gather windows'
+     compaction and the best/nearly-best streak filter (at every P: K2,
+     K3, K6 and K7) made again on its operands and held against its
+     plain twin (`frame_calls.assert_matches_twin`: K1 within rtol 2e-4,
+     K5 as bf16 bits, the rest bit for bit); its time alone
+     (`graph_ms`) and with its wrapper (`cuda_ms`), its bound and the
+     share of it reached, and the twin's time; for the compaction also
+     the share of rows with more live slots than it keeps
+     (`rows_over_capacity`), and rows for its calls in the evaluation
+     path's frame (`temporal_gather_mode "reference"`: the temporal
+     call's 576 slots), where the kernel must not be slower than the
+     twin; then the occupancy the built K3, K5, K6 and K7 report
+     (`k*_info`).
 
 It prints a line a call, then one JSON line of the rows, the occupancy
 and frame 4's counts, and last {"ok": true, "device": {...}}. It exits 1
@@ -89,6 +90,14 @@ def compact_work(Q, S, A, W, has_priority):
     source slot and written (2 (8 + 4 A + 1) B). Its comparisons are not
     counted: the bytes bound it."""
     return 0, Q * S * (5 if has_priority else 1) + Q * W * 2 * (9 + 4 * A)
+
+
+def bnb_work(N, C):
+    """(flops, bytes) of the best/nearly-best streak filter (csrc/
+    bnb_keep.cu) on (N, C) slots: bytes, each slot's score and mask read
+    once and its mask written once (6 B). Its compares are not counted:
+    the bytes bound it."""
+    return 0, N * C * 6
 
 
 def with_bound(ms, flops, nbytes, fma_free=False):
@@ -166,8 +175,9 @@ def f32_differ(a, b):
 
 def call_work(call, out):
     """(flops, bytes) of one recorded call: what the benchmark counts of
-    its launches, `nms_work` for the NMS kernel (`out` its EdgeLists) or
-    `compact_work` for the compaction."""
+    its launches, `nms_work` for the NMS kernel (`out` its EdgeLists),
+    `compact_work` for the compaction or `bnb_work` for the streak
+    filter."""
     from vo_bench.harness import kernels as KN
 
     a = call.bound()
@@ -178,6 +188,8 @@ def call_work(call, out):
         (Q, S), A = a["mask"].shape, a["attrs"].shape[0]
         return compact_work(Q, S, A, min(a["capacity"], S),
                             a["priority"] is not None)
+    if call.kernel == "BNB":
+        return bnb_work(*a["mask"].shape)
     with KN.WorkRecorder() as rec:
         call.run()
     (w,) = rec.work().values()

@@ -14,11 +14,11 @@
 // key = priority on live slots and 3.0e38 on masked ones (with no
 // priority, key = 0 live, 1 masked); the S slots of a row ordered by
 // (key, slot), the key in the order cub's radix sort gives floats
-// (`radix_bits`: -0.0 as +0.0, NaNs by their bits); output position
-// r < W = min(C, S) holds the slot of rank r: its idx, its A attribute
-// planes and its mask. So live slots come first by priority, then the
-// masked slots in slot order (their idx and attributes copied too),
-// wherever no live key is at or past 3.0e38.
+// (`radix_bits` of sort_order.cuh: -0.0 as +0.0, NaNs by their bits);
+// output position r < W = min(C, S) holds the slot of rank r: its idx,
+// its A attribute planes and its mask. So live slots come first by
+// priority, then the masked slots in slot order (their idx and
+// attributes copied too), wherever no live key is at or past 3.0e38.
 //
 // What bounds it: bytes. Each slot's mask and priority are read once
 // (5 B), each output slot written once from its source slot (idx, the A
@@ -61,7 +61,11 @@
 
 #include <cuda_runtime.h>
 
+#include "sort_order.cuh"
+
 namespace {
+
+using sort_order::radix_bits;
 
 constexpr int MAX_WARPS = 2;                 // rows a block
 constexpr int MAX_SLOTS = 4096;              // slots a row
@@ -81,16 +85,6 @@ struct Args {
   float* attrs_out;            // (A, Q, W)
   unsigned char* mask_out;     // (Q, W)
 };
-
-// A float's radix bits as cub's radix sort orders them: -0.0 taken as
-// +0.0, then (Traits<float>::TwiddleIn) the sign bit set flips every bit,
-// else the sign bit alone. Unsigned order of these is the order of the
-// keys: -NaN, -inf, ..., -0.0 = +0.0, ..., +inf, +NaN (NaNs by payload).
-__device__ __forceinline__ unsigned radix_bits(float x) {
-  unsigned u = __float_as_uint(x);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 // Row `row`'s slot s to output position r.
 __device__ __forceinline__ void put(const Args& a, int row, int s, int r,

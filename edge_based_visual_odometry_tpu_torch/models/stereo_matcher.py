@@ -30,6 +30,7 @@ from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.models.types import (
     EdgeList, FrameData, RigArrays, StereoMates)
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
+from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
 from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
 from edge_based_visual_odometry_tpu_torch.ops import grid as GRID
@@ -108,6 +109,53 @@ def _bnb_keep(scores, mask, ratio_thresh: float, higher_better: bool):
     keep_sorted = torch.where(n_cand < 2, m_sorted, keep_sorted)
     keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
     return mask & keep
+
+
+# slots a row `csrc/bnb_keep.cu` takes (one warp a row, two slots a lane)
+BNB_MAX_SLOTS = 64
+
+
+def bnb_keep_cuda(scores, mask, ratio_thresh: float, higher_better: bool):
+    """The hand-written kernel (csrc/bnb_keep.cu): `_bnb_keep`'s kept
+    slots as the twin gives them on the card, bit for bit: the slots
+    ordered by (key, slot), the key in the order torch.sort gives floats
+    there (-0.0 as +0.0, NaNs by their bits), the ratio an IEEE division
+    compared in float32. scores (N, C) float32 and mask (N, C) bool,
+    contiguous CUDA tensors; C at most `BNB_MAX_SLOTS`. One launch (none
+    where the mask is empty)."""
+    if not mask.is_cuda:
+        raise ValueError(f"bnb_keep_cuda: needs a CUDA tensor, got one on "
+                         f"{mask.device}")
+    if mask.dim() != 2:
+        raise ValueError(f"mask (N, C) expected, got {tuple(mask.shape)}")
+    N, C = mask.shape
+    dev = mask.device
+    CB.require(scores, "scores", torch.float32, (N, C), dev)
+    CB.require(mask, "mask", torch.bool, (N, C), dev)
+    if C > BNB_MAX_SLOTS:
+        raise ValueError(f"{C} slots a row: the kernel takes at most "
+                         f"{BNB_MAX_SLOTS}")
+    out = torch.empty_like(mask)
+    if N == 0 or C == 0:
+        return out
+    lib = CB.lib()
+    with torch.cuda.device(dev):
+        err = lib.bnb_keep_launch(scores.data_ptr(), mask.data_ptr(), N, C,
+                                  float(ratio_thresh), int(higher_better),
+                                  out.data_ptr(), CB.stream_ptr(dev))
+    CB.check(err, "bnb_keep")
+    CB.LAUNCHES["bnb_keep"] += 1
+    return out
+
+
+def bnb_keep(scores, mask, ratio_thresh: float, higher_better: bool):
+    """`_bnb_keep`'s streak filter: the CUDA kernel for CUDA tensors, the
+    plain twin for CPU tensors."""
+    if mask.is_cuda:
+        return bnb_keep_cuda(scores, mask, ratio_thresh, higher_better)
+    if mask.device.type != "cpu":
+        raise ValueError(f"bnb_keep: unsupported device {mask.device}")
+    return _bnb_keep(scores, mask, ratio_thresh, higher_better)
 
 
 def _epipolar_shift(state: StereoState, cfg: VOConfig):
@@ -419,10 +467,10 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
 
     # ---- stages 6/7: best-nearly-best on NCC, then descriptor ----
     with span("stereo.bnb"):
-        state = state._replace(cmask=_bnb_keep(
+        state = state._replace(cmask=bnb_keep(
             state.ncc, state.cmask, cfg.bnb_ncc, higher_better=True))
         record(state)
-        state = state._replace(cmask=_bnb_keep(
+        state = state._replace(cmask=bnb_keep(
             state.desc_dist, state.cmask, cfg.bnb_sift, higher_better=False))
         record(state)
 

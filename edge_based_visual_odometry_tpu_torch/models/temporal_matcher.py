@@ -23,7 +23,7 @@ import torch
 from edge_based_visual_odometry_tpu_torch import geometry as geom
 from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.models.stereo_matcher import (
-    _bnb_keep, _count_row, _flatten_active, _scatter_back)
+    _count_row, _flatten_active, _scatter_back, bnb_keep)
 from edge_based_visual_odometry_tpu_torch.models.types import (
     FrameData, RigArrays, StereoMates)
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
@@ -241,10 +241,10 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
 
     # ---- BNB on left-side scores ----
     with span("temporal.bnb"):
-        q = q._replace(cmask=_bnb_keep(
+        q = q._replace(cmask=bnb_keep(
             q.ncc_l, q.cmask, cfg.temporal_bnb_ratio, higher_better=True))
         record(q)
-        q = q._replace(cmask=_bnb_keep(
+        q = q._replace(cmask=bnb_keep(
             q.desc_l, q.cmask, cfg.temporal_bnb_ratio, higher_better=False))
         record(q)
 

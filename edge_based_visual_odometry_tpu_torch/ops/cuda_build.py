@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
             "refine_2dof": 0, "cluster_edges": 0, "edge_descriptors": 0,
             "dense_gates": 0, "edge_patches": 0, "ransac_score": 0,
-            "pose_gn": 0, "toed_nms_compact": 0, "compact_candidates": 0}
+            "pose_gn": 0, "toed_nms_compact": 0, "compact_candidates": 0,
+            "bnb_keep": 0}
 # step -> its calls on a CUDA device since the last reset_launch_counts():
 # captured into a graph, replayed from it, or run eagerly
 GRAPH_STEPS = {step: {"capture": 0, "replay": 0, "eager": 0}
@@ -103,6 +104,9 @@ _SIGNATURES = {
     # the gather windows' compaction: idx, attrs, mask, priority (or
     # null), Q, S, A, W, outputs, stream
     "compact_candidates_launch": [_P] * 4 + [_I] * 4 + [_P] * 4,
+    # the best/nearly-best streak: scores, mask, N, C, thresh,
+    # higher_better, out, stream
+    "bnb_keep_launch": [_P] * 2 + [_I] * 2 + [_F, _I] + [_P] * 2,
 }
 
 _lock = threading.Lock()
@@ -197,17 +201,20 @@ def lib() -> ctypes.CDLL:
 
 def check_kernel_ranges(cfg):
     """Raise ValueError, naming the field, where a `VOConfig` setting lies
-    outside what a hand-written kernel takes: K4's and K6's slots a row
-    (`max_candidates`, `max_quad_candidates`), K5's 4 x 4 cells x 8 bins
-    and at most 16 x 16 samples (K6 reads its 2 x 128-bin output), the odd
-    patch size P <= 11 (2 P^2 <= 242) of K2, K3, K6 and K7, and K1's 19
-    taps (`toed_kernel_size` 17; 18 builds the same taps). K8 and K9 (the
-    RANSAC scoring and pose GN) take every setting. The wrappers
-    refuse such settings at their launch; the pipeline's step builders
-    call this on CUDA so that they fail at construction. The plain twins
+    outside what a hand-written kernel takes: K4's, K6's and the BNB
+    filter's slots a row (`max_candidates`, `max_quad_candidates`), K5's
+    4 x 4 cells x 8 bins and at most 16 x 16 samples (K6 reads its 2 x
+    128-bin output), the odd patch size P <= 11 (2 P^2 <= 242) of K2, K3,
+    K6 and K7, and K1's 19 taps (`toed_kernel_size` 17; 18 builds the
+    same taps). K8 and K9 (the RANSAC scoring and pose GN) take every
+    setting. The wrappers refuse such settings at their launch; the
+    pipeline's step builders call this on CUDA so that they fail at
+    construction. The plain twins
     (the CPU) take these settings wherever the reference does; the
     reference's patch-coverage guard, which holds on both devices, is
     `patches.check_coverage`."""
+    from edge_based_visual_odometry_tpu_torch.models import (
+        stereo_matcher as SM)
     from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
     from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
     from edge_based_visual_odometry_tpu_torch.ops import gauss_newton as GN
@@ -217,11 +224,12 @@ def check_kernel_ranges(cfg):
     def refuse(field, why):
         raise ValueError(f"VOConfig.{field} = {getattr(cfg, field)!r}: {why}")
 
-    slots = min(CL.MAX_SLOTS, PAT.MAX_SLOTS)
+    slots = min(CL.MAX_SLOTS, PAT.MAX_SLOTS, SM.BNB_MAX_SLOTS)
     for field in ("max_candidates", "max_quad_candidates"):
         if getattr(cfg, field) > slots:
-            refuse(field, f"K4 (cluster_edges) and K6 (dense_gates) take at "
-                          f"most {slots} slots a row")
+            refuse(field, f"K4 (cluster_edges), K6 (dense_gates) and the BNB "
+                          f"filter (bnb_keep) take at most {slots} slots a "
+                          f"row")
     # K6 reads K5's output: 2 halves of 4 x 4 cells x 8 bins
     if cfg.desc_spatial_bins ** 2 != DESC.K5_CELLS:
         refuse("desc_spatial_bins", "K5 (edge_descriptors) computes 4 x 4 "

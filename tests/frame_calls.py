@@ -5,10 +5,10 @@ checks that hold a kernel's output against its plain twin's.
 attribute) while it is entered; each call is kept as a `Call` (its
 tensors cloned before the call, so that a later write by the frame cannot
 touch them) and then made. By default the targets are the `*_cuda`
-wrappers of K1-K9, TOED's NMS kernel and the gather windows' compaction
-(`WRAPPERS`). A step graph runs eagerly while any of them is rebound
-(`utils/graphs.py`), so a recorded frame makes every launch through a
-wrapper.
+wrappers of K1-K9, TOED's NMS kernel, the gather windows' compaction and
+the best/nearly-best streak filter (`WRAPPERS`). A step graph runs
+eagerly while any of them is rebound (`utils/graphs.py`), so a recorded
+frame makes every launch through a wrapper.
 
 `frame_calls(pipe, frames)` runs frames[:3] through `pipe` and returns
 the calls of frame 2 (the eager stereo step and the prediction-mode
@@ -26,6 +26,7 @@ import inspect
 import numpy as np
 import torch
 
+from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import types as TY
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import descriptors as DESC
@@ -54,6 +55,7 @@ WRAPPERS = {
     "pose_gn_normal_equations_cuda": ("K9", POSE,
                                       "pose_gn_normal_equations_plain"),
     "compact_candidates_cuda": ("compact", GRID, "compact_candidates_plain"),
+    "bnb_keep_cuda": ("BNB", SM, "_bnb_keep"),
 }
 
 # the wrappers' arguments the twins do not take: K2's interleaved maps,
@@ -73,6 +75,7 @@ FRAME_CALLS = {
     "K8": ("prescore", "full count"),
     "K9": ("step 0", "step 1", "step 2", "step 3"),
     "compact": ("stereo", "temporal"),
+    "BNB": ("stereo NCC", "stereo SIFT", "temporal NCC", "temporal SIFT"),
 }
 # the launches of that frame by `cuda_build.LAUNCHES` entry: one a call
 # but NMS 2, K3's call 2, K6's stereo and temporal calls 2 each
@@ -80,7 +83,7 @@ FRAME_LAUNCHES = {"toed_gradient_field": 1, "toed_nms_compact": 2,
                   "refine_along_epipolar": 2, "refine_2dof": 2,
                   "cluster_edges": 2, "edge_descriptors": 3, "dense_gates": 5,
                   "edge_patches": 4, "ransac_score": 2, "pose_gn": 4,
-                  "compact_candidates": 2}
+                  "compact_candidates": 2, "bnb_keep": 4}
 
 
 def _clone(x):
@@ -259,14 +262,21 @@ def assert_compact_same(got, ref):
     assert torch.equal(got[2], ref[2]), "mask differs"
 
 
+def assert_bnb_same(got, ref):
+    """The streak filter's kept slots and its twin's, every slot."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.bool
+    n_bad = int((got != ref).sum())
+    assert n_bad == 0, f"{n_bad} of {got.numel()} slots differ"
+
+
 def assert_matches_twin(call, got, ref):
     """One recorded call's kernel output (`got`, from `call.run()`)
     against its twin's (`ref`, from `call.twin()`) on the same operands:
     K1 within rtol 2e-4 / atol 2e-3 and its orientation's 99.9% quantile
     under 1e-3 rad, K5 as bf16 bit patterns, the rest bit for bit (K2 and
     K3 on the active lanes, K7's stage-11 call on its live entries, the
-    compaction on every output slot). An AssertionError says what
-    differs."""
+    compaction and the streak filter on every output slot). An
+    AssertionError says what differs."""
     k, kw = call.kernel, call.bound()
     if k == "K1":
         assert_toed_close(got, ref)
@@ -297,5 +307,7 @@ def assert_matches_twin(call, got, ref):
         assert got.dtype == ref.dtype and torch.equal(got, ref)
     elif k == "compact":     # (idx, attrs, mask), every slot
         assert_compact_same(got, ref)
+    elif k == "BNB":         # the kept slots
+        assert_bnb_same(got, ref)
     else:
         same_f32(got, ref)

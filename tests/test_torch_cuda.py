@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (K1, TOED's NMS and compaction, K2, K3,
 K3's both-sides launch, K4, K5, K6's three entries, K7, K8, K9, the
-gather windows' compaction) against
+gather windows' compaction, the best/nearly-best streak filter) against
 their plain-PyTorch twins, on the card: on seeded cases, and on every
 call of a full-size frame of each benchmark cell (`tests/frame_calls.py`);
 and the paths through them (the pipeline, BA, the CLI, the NCCL pair step
@@ -21,6 +21,7 @@ from edge_based_visual_odometry_tpu_torch.config import VOConfig
 from edge_based_visual_odometry_tpu_torch.io import synthetic as S
 from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
 from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
+from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import types as TY
 from edge_based_visual_odometry_tpu_torch.ops import clustering as CL
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
@@ -33,6 +34,7 @@ from edge_based_visual_odometry_tpu_torch.ops import pose as POSE
 from edge_based_visual_odometry_tpu_torch.ops import toed as T
 from scripts import k4_jax_reference as K4J
 from scripts import k5_jax_reference as KJ
+from tests import bnb_cases as BC
 from tests import cluster_cases as CC
 from tests import compact_cases as CPC
 from tests import descriptor_cases as DC
@@ -1182,10 +1184,11 @@ def test_compact_dispatch_counts_one_launch(dev):
 def test_frame_replay_launches_no_long_row_radix_sort(dev):
     """Frame 4 of `make_sequence(5, 376, 1241)` through VOPipeline(
     VOConfig(), every_frame), both steps replaying their graphs: its
-    trace holds the compaction kernel twice (stereo, temporal) and no
-    `radixSortKVInPlace` of rows longer than 32 keys. The one left,
-    `radixSortKVInPlace<2, -1, 16, 2, float, long>` (rows padded to 32
-    keys), is `_bnb_keep`'s 32-slot rows: 4 calls a frame."""
+    trace holds the compaction kernel twice (stereo, temporal), the
+    streak filter's kernel 4 times (stereo stages 6 and 7, the temporal
+    step's two), and no `radixSortKVInPlace` (a row sort of any length:
+    `_bnb_keep`'s 32-slot rows were the last) and no int64 multiplying
+    scan (`_bnb_keep`'s cumprod)."""
     from edge_based_visual_odometry_tpu_torch.utils import timing
 
     seq = S.make_sequence(5, 376, 1241)
@@ -1203,14 +1206,103 @@ def test_frame_replay_launches_no_long_row_radix_sort(dev):
     replay = dict(capture=0, replay=1, eager=0)
     assert CB.GRAPH_STEPS == {"stereo_step": replay, "temporal_step": replay}
     assert CB.LAUNCHES["compact_candidates"] == 2
+    assert CB.LAUNCHES["bnb_keep"] == 4
     ops = {e.key: e.count for e in timing.device_ops(
         prof, torch.autograd.DeviceType.CUDA)}
     assert sum(n for k, n in ops.items()
                if "compact_candidates_kernel" in k) == 2, ops
+    assert sum(n for k, n in ops.items() if "bnb_keep_kernel" in k) == 4, ops
     radix = {k: n for k, n in ops.items() if "radixSortKVInPlace" in k}
-    assert all(k.startswith("void at::native::radixSortKVInPlace<2, -1, 16, "
-                            "2, float, long") for k in radix), radix
-    assert sum(radix.values()) == 4, radix
+    assert not radix, radix
+    scans = {k: n for k, n in ops.items()
+             if "scan" in k and "multiplies" in k}
+    assert not scans, scans
+
+
+# ---- the best/nearly-best streak filter (csrc/bnb_keep.cu) ----
+def _bnb_same(dev, s, m, thresh, hb):
+    s, m = (torch.from_numpy(a).to(dev) for a in (s, m))
+    got = SM.bnb_keep_cuda(s, m, thresh, hb)
+    ref = SM._bnb_keep(s, m, thresh, hb)
+    torch.cuda.synchronize()
+    FC.assert_bnb_same(got, ref)
+    return got
+
+
+def _bnb_rows(C, thresh, hb, R=4096):
+    s, m = BC.edge_rows(C, thresh, hb, seed=C)
+    rs, rm = BC.random_rows(R, C, hb, seed=C + 1)
+    return np.concatenate([s, rs]), np.concatenate([m, rm])
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("caller", sorted(BC.THRESHOLDS))
+def test_bnb_kernel_matches_twin_bit_for_bit(dev, caller, C):
+    """The hand-made rows of `tests/bnb_cases.py` (a best tied, ties
+    mid-streak, a best of 0, -0.0 against +0.0, negative scores, NaNs of
+    both signs and other payloads, +-inf, live keys at the fill 3.4e38,
+    ratios one float32 ulp either side of the threshold, 0, 1, 2 and
+    every slot live) and 4,096 seeded rows, at a caller's threshold and
+    direction, against the twin on the card on every slot: the kernel
+    orders the keys as torch.sort's radix sort does there, divides and
+    compares as PyTorch does."""
+    thresh, hb = BC.THRESHOLDS[caller]
+    _bnb_same(dev, *_bnb_rows(C, thresh, hb), thresh, hb)
+
+
+@pytest.mark.parametrize("C", [1, 2, 8, 25, 31, 33, 40, 63])
+def test_bnb_kernel_other_widths(dev, C):
+    """Rows of 1 to 63 slots (one slot a lane, or two past 32), every
+    caller's threshold."""
+    for thresh, hb in BC.THRESHOLDS.values():
+        _bnb_same(dev, *_bnb_rows(C, thresh, hb, R=1024), thresh, hb)
+
+
+def test_bnb_kernel_at_the_callers_sizes(dev):
+    """32,768 rows (the stereo calls) and 24,576 (the temporal calls) of
+    32 slots, as the callers make them: the twin's output on every slot,
+    and the streak cuts some rows."""
+    for R, callers in ((32768, ("stereo_ncc", "stereo_sift")),
+                       (24576, ("temporal_ncc", "temporal_sift"))):
+        for caller in callers:
+            thresh, hb = BC.THRESHOLDS[caller]
+            s, m = BC.random_rows(R, 32, hb, seed=R)
+            got = _bnb_same(dev, s, m, thresh, hb)
+            cut = got.cpu().numpy() != m
+            assert 0 < cut.any(1).sum() < R
+
+
+def test_bnb_wrapper_refuses_operands(dev):
+    """Other dtypes, shapes or devices, non-contiguous operands and more
+    than `BNB_MAX_SLOTS` slots raise ValueError."""
+    s, m = (torch.from_numpy(a).to(dev)
+            for a in BC.random_rows(64, 32, True, 0))
+    SM.bnb_keep_cuda(s, m, 0.9, True)
+    bad = [(s.double(), m), (s, m.to(torch.uint8)), (s[:, :16], m),
+           (s.cpu(), m), (s, m[0]), (s.t().contiguous().t(), m),
+           (s, m.t().contiguous().t()), (s.cpu(), m.cpu())]
+    for k, (a, b) in enumerate(bad):
+        with pytest.raises(ValueError):
+            SM.bnb_keep_cuda(a, b, 0.9, True)
+            pytest.fail(f"case {k} was taken")
+    wide = torch.zeros(4, SM.BNB_MAX_SLOTS + 1, device=dev)
+    with pytest.raises(ValueError, match="slots a row"):
+        SM.bnb_keep_cuda(wide, wide > 0, 0.9, True)
+
+
+def test_bnb_dispatch_counts_one_launch(dev):
+    """`bnb_keep` on the card launches the kernel once a call and adds 1
+    to `LAUNCHES["bnb_keep"]`, and launches nothing for no rows."""
+    s, m = (torch.from_numpy(a).to(dev)
+            for a in BC.random_rows(64, 32, True, 1))
+    before = CB.LAUNCHES["bnb_keep"]
+    for k, (thresh, hb) in enumerate(BC.THRESHOLDS.values(), 1):
+        got = SM.bnb_keep(s, m, thresh, hb)
+        assert CB.LAUNCHES["bnb_keep"] == before + k
+        FC.assert_bnb_same(got, SM._bnb_keep(s, m, thresh, hb))
+    out = SM.bnb_keep(s[:0], m[:0], 0.9, True)
+    assert tuple(out.shape) == (0, 32) and out.dtype == torch.bool
+    assert CB.LAUNCHES["bnb_keep"] == before + len(BC.THRESHOLDS)
 
 
 # ---- every hand-kernel call of a full-size frame against its twin ----

@@ -122,12 +122,15 @@ def _compact_out():
     ("compact_candidates_cuda", _compact_out(),
      lambda o: (o[0], _flip(o[1]), o[2])),
     ("compact_candidates_cuda", _compact_out(),
-     lambda o: (o[0], o[1], ~o[2]))])
+     lambda o: (o[0], o[1], ~o[2])),
+    ("bnb_keep_cuda", torch.tensor([[True, False, True], [False] * 3]),
+     lambda o: o ^ (torch.arange(6).reshape(2, 3) == 4))])
 def test_twin_check_passes_equal_and_fails_on_a_difference(name, ref, bad):
     """`assert_matches_twin` on outputs in each kernel's form: equal ones
     pass, a difference past the kernel's tolerance fails (K1: Ix past
     rtol 2e-4 / atol 2e-3, the orientation past 1e-3 rad; the others one
-    bit, or a flipped flag of the compaction's mask)."""
+    bit, or a flipped flag of the compaction's or the streak filter's
+    mask)."""
     call = FC.Call(None, name, lambda *a, **kw: None, (), {})
     FC.assert_matches_twin(call, ref, ref)
     with pytest.raises(AssertionError):

@@ -91,14 +91,15 @@ def test_builders_refuse_what_the_coverage_guard_refuses(rig, builder,
 @pytest.mark.parametrize("field,value,kernel", [
     ("max_candidates", 65, "K6 \\(dense_gates\\)"),
     ("max_quad_candidates", 96, "K6 \\(dense_gates\\)"),
+    ("max_quad_candidates", 65, "the BNB filter \\(bnb_keep\\)"),
     ("desc_orient_bins", 16, "K6 \\(dense_gates\\) reads 128 bins"),
     ("desc_spatial_bins", 3, "K6 \\(dense_gates\\) reads 128 bins"),
     ("patch_size", 13, "K6 \\(dense_gates\\) and K7 \\(edge_patches\\)"),
     ("patch_size", 8, "K7 \\(edge_patches\\) take odd sizes")])
 def test_k6_k7_limits_are_named(field, value, kernel):
-    """K6 holds a row's live slots in 64 bits and reads K5's 2 x 128 bins;
-    K6 and K7 hold a patch side on at most four samples a lane (odd P,
-    P*P <= 121)."""
+    """K6 holds a row's live slots in 64 bits and reads K5's 2 x 128 bins
+    (the BNB filter a row in one warp, two slots a lane); K6 and K7 hold a
+    patch side on at most four samples a lane (odd P, P*P <= 121)."""
     with pytest.raises(ValueError, match=kernel):
         CB.check_kernel_ranges(VOConfig(**{field: value}))
 

@@ -10,9 +10,10 @@ Port of `edge_based_visual_odometry_tpu/models/pipeline.py`:
 
 On a CUDA device each step replays a CUDA graph of its body from its
 third call on (`utils/graphs.py`): the same kernels and ops, launched by
-one replay in place of the host's ~1,900 launches a frame. Calls with GT
-maps, GT poses, recorded distributions or a GN capture run eagerly, as
-every call does on the CPU.
+one replay in place of the host's ~1,900 launches a frame, the
+supervised steps' (GT maps, GT pose) too. Calls with recorded
+distributions or a GN capture run eagerly, as every call does on the
+CPU.
 
 `VOPipeline.run_frame` carries the keyframe state across frames with the
 `reference`, `every_frame` and `adaptive` keyframe policies, a bootstrap
@@ -20,8 +21,10 @@ temporal step (reference-mode gather window) until the first successful
 pose, and constant-velocity prediction. Evaluation modes: GT disparity
 supervision of the stereo cascade (`has_gt_disparity`), quads from the GT
 relative pose (`use_gt_pose`), filter distributions
-(`record_distributions`). `ba_window >= 2` refines the keyframe poses
-with the sliding-window BA of `models/window_ba.py`.
+(`record_distributions`). The supervised modes' stage rows are kept on
+the device (`StageRows`) and read to the host when the logs are read;
+`EVAL` counts them. `ba_window >= 2` refines the keyframe poses with
+the sliding-window BA of `models/window_ba.py`.
 """
 
 from __future__ import annotations
@@ -38,13 +41,17 @@ from edge_based_visual_odometry_tpu_torch.models import motion_tracker as MT
 from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
 from edge_based_visual_odometry_tpu_torch.models.types import (
-    FrameData, StereoMates, resolve_device, rig_arrays_from_rig)
+    EdgeList, FrameData, StereoMates, resolve_device, rig_arrays_from_rig)
 from edge_based_visual_odometry_tpu_torch.ops import cuda_build as CB
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as PAT
 from edge_based_visual_odometry_tpu_torch.ops import toed
 from edge_based_visual_odometry_tpu_torch.utils.graphs import StepGraph
 from edge_based_visual_odometry_tpu_torch.utils.timing import span
+
+# the evaluation path since the last `cuda_build.reset_launch_counts()`:
+# stage rows logged (stereo, temporal), GT-map bytes handed to the stereo step
+EVAL = CB.counter("stereo_rows", "temporal_rows", "gt_bytes")
 
 
 class FrameResult(NamedTuple):
@@ -56,6 +63,9 @@ class FrameResult(NamedTuple):
     # filter / ambiguity distributions; None unless the step was built
     # with record_distributions
     distributions: Optional[dict] = None
+    # the right image's edges the supervised cascade read; None unless the
+    # step was built with has_gt
+    right_edges: Optional[EdgeList] = None
 
 
 class TemporalResult(NamedTuple):
@@ -67,6 +77,41 @@ class TemporalResult(NamedTuple):
     inlier_ratio: torch.Tensor
     n_quads: torch.Tensor
     success: torch.Tensor
+
+
+class StageRows:
+    """One step's stage-row log. `append` copies a (n_stages, 4) row into
+    the next slot of a device block of `BLOCK` rows: no wait for the
+    device, and no hold on the row's tensor, which may view a graph
+    replay's whole result. `rows()` reads what is new to the host in one
+    copy and gives every row in order, as numpy arrays. `counter`: its
+    entry of `EVAL`."""
+
+    BLOCK = 1024
+
+    def __init__(self, counter: str):
+        self.counter = counter
+        self.blocks = []
+        self.n = 0
+        self._read = []
+
+    def append(self, row: torch.Tensor):
+        i = self.n % self.BLOCK
+        if i == 0:
+            self.blocks.append(torch.empty((self.BLOCK, *row.shape),
+                                           dtype=row.dtype,
+                                           device=row.device))
+        self.blocks[-1][i].copy_(row)
+        self.n += 1
+        EVAL[self.counter] += 1
+
+    def rows(self) -> list:
+        if len(self._read) < self.n:
+            first = len(self._read) // self.BLOCK
+            host = torch.cat(self.blocks[first:]).cpu().numpy()
+            self._read = (self._read[:first * self.BLOCK]
+                          + list(host[:self.n - first * self.BLOCK]))
+        return list(self._read)
 
 
 def _needs_undistort(cam) -> bool:
@@ -96,10 +141,10 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
     `has_gt`: the step takes the GT disparity map and the non-occlusion
     mask and supervises the cascade with them. A setting the reference
     refuses, or on CUDA one outside a kernel's range, raises here
-    (`check_config`). On CUDA, without `has_gt` and
-    `record_distributions`, a call replays the step's graph (`StepGraph`)
-    once it is captured: the images are copied to the graph's static
-    inputs, the rest is the graph."""
+    (`check_config`). On CUDA, without `record_distributions`, a call
+    replays the step's graph (`StepGraph`) once it is captured: the
+    images (and the maps) are copied to the graph's static inputs, the
+    rest is the graph."""
     device = resolve_device(device)
     check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
@@ -108,28 +153,38 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
                           device=device) if _needs_undistort(cam) else None
              for cam in (rig.left, rig.right)]
 
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a)).to(device=device,
-                                                 dtype=torch.float32)
-
     def step(left, right, disparity=None, occlusion=None) -> FrameResult:
         with span("stereo_step"):
+            imgs = (_tensor(left), _tensor(right))
+            maps = None
+            if has_gt:
+                maps = (_tensor(disparity),
+                        None if occlusion is None else _tensor(occlusion))
+                EVAL["gt_bytes"] += sum(m.nbytes for m in maps
+                                        if m is not None)
             if graph is None:
-                return _step(left, right, disparity, occlusion)
-            return graph(((_tensor(left), _tensor(right)),))
+                return _step(imgs, maps)
+            return graph((imgs, maps) if has_gt else (imgs,))
 
-    def _step(left, right, disparity, occlusion):
+    def _step(imgs, maps):
         with span("upload"):
             # a host image's copy is pageable: the host waits for it
             with span("wait.upload"):
-                imgs = [_tensor(a).to(device) for a in (left, right)]
+                imgs = [a.to(device) for a in imgs]
             both = torch.stack(imgs).to(dtype=torch.float32)
-        return _match(both, disparity, occlusion)
+        if maps is not None:
+            with span("gt_upload"):
+                with span("wait.gt_upload"):
+                    maps = tuple(None if m is None else m.to(device)
+                                 for m in maps)
+        return _match(both, maps)
 
-    def _graph_body(imgs, seed, generator):
-        return _match(torch.stack(imgs).to(dtype=torch.float32), None, None)
+    def _graph_body(imgs, *rest):
+        # rest: (maps, seed, generator) with `has_gt`, else (seed, generator)
+        return _match(torch.stack(imgs).to(dtype=torch.float32),
+                      rest[0] if has_gt else None)
 
-    def _match(both, disparity, occlusion):
+    def _match(both, maps):
         if dists[0] is not None or dists[1] is not None:
             with span("undistort"):
                 both = torch.stack([
@@ -150,20 +205,22 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, device,
         with span("match_stereo"):
             out = SM.match_stereo(
                 led, red, frame, rig_a, cfg,
-                disparity_map=to_dev(disparity) if has_gt else None,
-                occlusion_map=(to_dev(occlusion)
-                               if has_gt and occlusion is not None else None),
+                disparity_map=(None if maps is None
+                               else maps[0].to(torch.float32)),
+                occlusion_map=(None if maps is None or maps[1] is None
+                               else maps[1].to(torch.float32)),
                 gather_ry=gather_ry,
                 record_distributions=record_distributions)
         return FrameResult(frame=frame, mates=out[0], stereo_metrics=out[2],
                            n_left_edges=led.count, n_right_edges=red.count,
                            distributions=out[3] if record_distributions
-                           else None)
+                           else None,
+                           right_edges=red if maps is not None else None)
 
     graph = (StepGraph("stereo_step", _graph_body, device,
-                       load_spans=("upload", "wait.upload"))
-             if device.type == "cuda" and not has_gt
-             and not record_distributions else None)
+                       load_spans=(("upload", "wait.upload"),
+                                   ("gt_upload", "wait.gt_upload")))
+             if device.type == "cuda" and not record_distributions else None)
     return step
 
 
@@ -177,10 +234,10 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
     TemporalResult; rel_R/rel_t is the KF->CF pose used for quad
     prediction (GT with `use_gt`, predicted in production). A setting the
     reference refuses, or on CUDA one outside a kernel's range, raises
-    here (`check_config`). On CUDA, without `use_gt`, a call whose tensors
-    are all on the device replays the step's graph (`StepGraph`) once it
-    is captured; its RANSAC draws come from the graph's generator, seeded
-    with `seed` before each replay, and equal the eager step's."""
+    here (`check_config`). On CUDA a call whose tensors are all on the
+    device replays the step's graph (`StepGraph`) once it is captured;
+    its RANSAC draws come from the graph's generator, seeded with `seed`
+    before each replay, and equal the eager step's."""
     device = resolve_device(device)
     check_config(cfg, device)
     rig_a = rig_arrays_from_rig(rig, device)
@@ -215,7 +272,7 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, device,
         return _body(*kf, *cf, *rel, seed, generator)
 
     graph = (StepGraph("temporal_step", _graph_body, device, generator=True)
-             if device.type == "cuda" and not use_gt else None)
+             if device.type == "cuda" else None)
     return step
 
 
@@ -233,8 +290,11 @@ class VOPipeline:
     has_gt_disparity: `run_frame` takes the GT disparity (and optionally
     the non-occlusion mask, 255 = visible) and logs the stereo stage rows.
     use_gt_pose: quads are built from the GT relative pose and the
-    temporal stage rows are logged. ba_window: sliding-window BA length in
-    keyframes (0 = off, >= 2 on; needs a re-keyframing policy).
+    temporal stage rows are logged. The logs, `stereo_metrics_log` and
+    `temporal_metrics_log`, are lists of (n_stages, 4) numpy rows, read
+    from the device when they are read (`StageRows`). ba_window:
+    sliding-window BA length in keyframes (0 = off, >= 2 on; needs a
+    re-keyframing policy).
 
     A rig with non-zero distortion coefficients is undistorted inside the
     stereo step, on `device` (the reference goes through cv2 on the host
@@ -297,11 +357,19 @@ class VOPipeline:
         self.kf_pose_est = geom.Pose.identity(self.device)
         self.trajectory = []                       # per-frame world->cam
         self.frame_idx = 0
-        self.stereo_metrics_log = []
-        self.temporal_metrics_log = []
+        self._stereo_rows = StageRows("stereo_rows")
+        self._temporal_rows = StageRows("temporal_rows")
         self.ba_info_log = []         # per-BA-solve info dicts
         self.last_rel = geom.Pose.identity(self.device)   # predicted KF->CF
         self.prev_cam_pose: Optional[geom.Pose] = None
+
+    @property
+    def stereo_metrics_log(self) -> list:
+        return self._stereo_rows.rows()
+
+    @property
+    def temporal_metrics_log(self) -> list:
+        return self._temporal_rows.rows()
 
     def _on_device(self, pose: Optional[geom.Pose]) -> Optional[geom.Pose]:
         if pose is None:
@@ -326,7 +394,6 @@ class VOPipeline:
                 occlusion = np.full(np.asarray(disparity).shape, 255.0,
                                     np.float32)
             fr = self._stereo_step(left_img, right_img, disparity, occlusion)
-            self.stereo_metrics_log.append(fr.stereo_metrics.cpu().numpy())
         else:
             fr = self._stereo_step(left_img, right_img)
         tr = None
@@ -352,9 +419,6 @@ class VOPipeline:
                 success = bool(tr.success)
             if success:
                 self._have_velocity = True
-            if self.use_gt_pose:
-                self.temporal_metrics_log.append(
-                    tr.temporal_metrics.cpu().numpy())
             rel_est = geom.Pose(tr.R, tr.t)
             cam_pose = rel_est.compose(self.kf_pose_est)
             self.trajectory.append(cam_pose)
@@ -372,6 +436,12 @@ class VOPipeline:
             if rekeyframe and self.wba is not None:
                 with span("window_ba"):
                     self._run_window_ba(fr, tr, cam_pose)
+        if self.has_gt_disparity or (self.use_gt_pose and tr is not None):
+            with span("eval.rows"):
+                if self.has_gt_disparity:
+                    self._stereo_rows.append(fr.stereo_metrics)
+                if self.use_gt_pose and tr is not None:
+                    self._temporal_rows.append(tr.temporal_metrics)
         self.frame_idx += 1
         return fr, tr
 

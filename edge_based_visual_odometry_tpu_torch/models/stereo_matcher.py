@@ -325,23 +325,24 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
 
         # ---- veridical sets: right edges near the GT location that also
         # pass the epipolar and orientation tolerances; rows without one
-        # leave ----
+        # leave; every right edge in reach is read ----
         if has_gt:
-            _, v_attrs, vmask = GRID.query_sorted_grid_attrs(
-                rgrid, gt_x, gt_y, rx=cfg.gt_pair_dist_tol + 0.5,
-                ry=cfg.gt_pair_dist_tol + 0.5, slots_per_band=16,
-                n_band_window=2)
-            v_x, v_y, v_t = v_attrs[0], v_attrs[1], v_attrs[2]
-            v_epi = geom.point_line_distance(epi[:, None, :],
-                                             torch.stack([v_x, v_y], -1))
-            v_d = torch.sqrt((v_x - gt_x[:, None]) ** 2
-                             + (v_y - gt_y[:, None]) ** 2)
-            # raw (unwrapped) orientation difference
-            v_dth = torch.abs(geom.rad2deg(v_t) - geom.rad2deg(lt)[:, None])
-            vmask = (vmask & (v_epi < cfg.epipolar_line_dist_thresh)
-                     & (v_d < cfg.gt_pair_dist_tol)
-                     & (v_dth < cfg.gt_pair_orient_tol))
-            row_mask = row_mask & vmask.any(1)
+            def veridical(v_attrs, vmask):
+                v_x, v_y, v_t = v_attrs[0], v_attrs[1], v_attrs[2]
+                v_epi = geom.point_line_distance(epi[:, None, :],
+                                                 torch.stack([v_x, v_y], -1))
+                v_d = torch.sqrt((v_x - gt_x[:, None]) ** 2
+                                 + (v_y - gt_y[:, None]) ** 2)
+                # raw (unwrapped) orientation difference
+                v_dth = torch.abs(geom.rad2deg(v_t)
+                                  - geom.rad2deg(lt)[:, None])
+                return (vmask & (v_epi < cfg.epipolar_line_dist_thresh)
+                        & (v_d < cfg.gt_pair_dist_tol)
+                        & (v_dth < cfg.gt_pair_orient_tol))
+
+            row_mask = row_mask & GRID.any_in_box(
+                right_edges.x, right_edges.y, right_edges.valid, r_attrs, W, H,
+                gt_x, gt_y, cfg.gt_pair_dist_tol, veridical)
 
         # ---- stages 1-3 on the raw gather window, then compact to C;
         # the window is centred in y on the foot of the perpendicular from

@@ -135,25 +135,34 @@ def match_temporal(kf: StereoMates, cf: StereoMates, kf_frame: FrameData,
                                        band_h=band_h, attrs=cf_attrs)
 
         # ---- veridical quads: < 2 px both sides + transported
-        # orientation ----
-        r_v = cfg.dist_to_gt_thresh_quads + 1.0
-        vwin = int(-(-2 * r_v // band_h)) + 1
-        _, v_at, vmask = GRID.query_sorted_grid_attrs(
-            lgrid, pl[:, 0], pl[:, 1], rx=r_v, ry=r_v, slots_per_band=8,
-            n_band_window=vwin)
-        v_dl = torch.sqrt((v_at[0] - pl[:, 0:1]) ** 2
-                          + (v_at[1] - pl[:, 1:2]) ** 2)
-        v_dr = torch.sqrt((v_at[3] - pr[:, 0:1]) ** 2
-                          + (v_at[4] - pr[:, 1:2]) ** 2)
-        v_ol = geom.orientation_diff_deg(th_l[:, None], v_at[2])
-        v_or = geom.orientation_diff_deg(th_r[:, None], v_at[5])
-        # masked slots are valid entries by the grid query's guarantee
+        # orientation, over every frame mate in reach ----
+        r_v = cfg.dist_to_gt_thresh_quads
         v_th = cfg.veridical_orient_thresh_deg
-        vmask = (vmask & (v_dl < cfg.dist_to_gt_thresh_quads)
-                 & (v_dr < cfg.dist_to_gt_thresh_quads)
-                 & geom.orientation_gate(v_ol, v_th)
-                 & geom.orientation_gate(v_or, v_th))
-        has_verid = vmask.any(1)
+
+        def veridical(v_at, vmask):
+            v_dl = torch.sqrt((v_at[0] - pl[:, 0:1]) ** 2
+                              + (v_at[1] - pl[:, 1:2]) ** 2)
+            v_dr = torch.sqrt((v_at[3] - pr[:, 0:1]) ** 2
+                              + (v_at[4] - pr[:, 1:2]) ** 2)
+            v_ol = geom.orientation_diff_deg(th_l[:, None], v_at[2])
+            v_or = geom.orientation_diff_deg(th_r[:, None], v_at[5])
+            # masked slots are valid entries by the grid query's guarantee
+            return (vmask & (v_dl < r_v) & (v_dr < r_v)
+                    & geom.orientation_gate(v_ol, v_th)
+                    & geom.orientation_gate(v_or, v_th))
+
+        if use_gt:
+            has_verid = GRID.any_in_box(cf.left_x, cf.left_y, cf.valid,
+                                        cf_attrs, W, H, pl[:, 0], pl[:, 1],
+                                        r_v, veridical)
+        else:
+            # production reads no veridical flag: its window stays the
+            # first 8 slots a band of the (r_v + 1)-box, as its graph was
+            vwin = int(-(-2 * (r_v + 1.0) // band_h)) + 1
+            _, v_at, vmask = GRID.query_sorted_grid_attrs(
+                lgrid, pl[:, 0], pl[:, 1], rx=r_v + 1.0, ry=r_v + 1.0,
+                slots_per_band=8, n_band_window=vwin)
+            has_verid = veridical(v_at, vmask).any(1)
         row_mask = kf.valid & in_img
         if use_gt:
             # only KF rows that formed a veridical quad take part

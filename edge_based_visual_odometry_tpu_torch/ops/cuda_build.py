@@ -43,6 +43,9 @@ LAUNCHES = {"toed_gradient_field": 0, "refine_along_epipolar": 0,
 # captured into a graph, replayed from it, or run eagerly
 GRAPH_STEPS = {step: {"capture": 0, "replay": 0, "eager": 0}
                for step in ("stereo_step", "temporal_step")}
+# the counters reset_launch_counts() zeroes; a module adds its own with
+# `counter`
+_COUNTERS = [LAUNCHES, *GRAPH_STEPS.values()]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,10 +116,15 @@ _lock = threading.Lock()
 _lib = None
 
 
+def counter(*names: str) -> dict:
+    """A dict of counts, each 0, reset with the launch counts."""
+    counts = dict.fromkeys(names, 0)
+    _COUNTERS.append(counts)
+    return counts
+
+
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for counts in GRAPH_STEPS.values():
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
 

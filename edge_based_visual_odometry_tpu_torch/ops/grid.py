@@ -21,6 +21,7 @@ bit; on a CPU tensor the twin `compact_candidates_plain`.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -94,6 +95,62 @@ def query_sorted_grid_attrs(grid: SortedGrid, qx, qy, rx: float, ry: float,
     g = grid.sorted_attrs[:, pos]
     idx = torch.where(mask, g[0].to(torch.int64), torch.zeros_like(pos))
     return idx, g[1:], mask
+
+
+# TOED keeps at most one edge a pixel of its 2x interpolation grid, each
+# within sqrt(2) grid steps of that pixel (`ops/toed.py`, the subpixel fit)
+EDGE_REACH_PX = 0.5 * math.sqrt(2.0)
+# the band height of `any_in_box`'s own grid: the fewest slots a query
+# reads at the radii it serves (1-2 px); its windows a query, which bound
+# the memory a call takes
+BOX_BAND_H = 2
+BOX_PASSES = 2
+
+
+def band_span_capacity(band_h: float, r: float) -> int:
+    """The most entries one band's span of an r-box query can hold where
+    the grid holds one image's edges, or some of them (a frame's mates):
+    the interpolation pixels whose edge can land in the span, which is
+    band_h high and 2 r + 3/16 px wide (the keys' 1/16 px rounding)."""
+    cols = math.floor(2.0 * (2.0 * r + 3.0 / 16.0 + 2.0 * EDGE_REACH_PX)) + 1
+    rows = math.floor(2.0 * (band_h + 2.0 * EDGE_REACH_PX)) + 1
+    return cols * rows
+
+
+def any_in_box(x, y, valid, attrs, width: int, height: int, qx, qy,
+               r: float, test):
+    """(Q,) bool: whether a valid point (x, y) within the r-box around
+    each query passes `test(attrs (A, Q, S), mask (Q, S)) -> (Q, S)
+    bool`, `attrs` (N, A) the points' own. The points are sorted into a
+    grid of `BOX_BAND_H`-high bands, and every slot a band's span can
+    hold is read (`band_span_capacity`), in `BOX_PASSES` windows of
+    static shape: the answer is exact however dense the points."""
+    grid = build_sorted_grid(x, y, valid, width, height, band_h=BOX_BAND_H,
+                             attrs=attrs)
+    W16 = width * 16
+    nb = grid.n_bands * W16
+    ks = torch.arange(int(-(-2 * r // BOX_BAND_H)) + 1, dtype=torch.int64,
+                      device=qx.device)
+    b = torch.floor((qy - r) / BOX_BAND_H).to(torch.int64)[:, None] + ks
+    b_ok = (b >= 0) & (b < grid.n_bands)
+    xq_lo = torch.clamp(torch.floor((qx - r) * 16.0), 0, W16 - 1)
+    xq_hi = torch.clamp(torch.ceil((qx + r) * 16.0), 0, W16 - 1)
+    k_lo = torch.clamp(b * W16 + xq_lo.to(torch.int64)[:, None], 0, nb)
+    k_hi = torch.clamp(b * W16 + xq_hi.to(torch.int64)[:, None] + 1, 0, nb)
+    lo = torch.searchsorted(grid.sorted_keys, k_lo)          # (Q, K)
+    hi = torch.where(b_ok, torch.searchsorted(grid.sorted_keys, k_hi), lo)
+    cap = band_span_capacity(BOX_BAND_H, r)
+    step = -(-cap // BOX_PASSES)
+    last = grid.sorted_keys.shape[0] - 1
+    out = torch.zeros(qx.shape, dtype=torch.bool, device=qx.device)
+    for first in range(0, cap, step):
+        offs = torch.arange(first, min(first + step, cap), dtype=torch.int64,
+                            device=qx.device)
+        pos = lo[..., None] + offs                           # (Q, K, S)
+        mask = (pos < hi[..., None]).flatten(1)
+        at = grid.sorted_attrs[1:, torch.clamp(pos, max=last).flatten(1)]
+        out = out | test(at, mask).any(1)
+    return out
 
 
 # slots a row `csrc/compact_candidates.cu` takes (a warp keeps its row's

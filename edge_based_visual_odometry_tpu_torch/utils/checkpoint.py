@@ -71,7 +71,10 @@ def _arrays_to_nt(cls, prefix, data, device):
             # unserialized field with a default (e.g. diagnostics dicts)
             kwargs[f] = cls._field_defaults[f]
         else:
-            kwargs[f] = _arrays_to_nt(hints[f], f"{prefix}{f}.", data, device)
+            # an Optional field that was saved holds its one class
+            sub = [t for t in typing.get_args(hints[f]) if t is not type(None)]
+            kwargs[f] = _arrays_to_nt(sub[0] if sub else hints[f],
+                                      f"{prefix}{f}.", data, device)
     return cls(**kwargs)
 
 

@@ -2,11 +2,12 @@
 
 On a CUDA device `build_stereo_step` and `build_temporal_step` hand the
 body of their step to a `StepGraph`: everything after the host images
-reach the card (float conversion, undistortion, Sobel, `detect_edges`,
+(and, supervised, the GT disparity and non-occlusion maps) reach the
+card (float conversion, undistortion, Sobel, `detect_edges`,
 `match_stereo`), and the temporal step whole (`match_temporal`,
-`lift_quads`, `estimate_pose`). The body launches the same hand kernels
-and plain ops on either path; a graph only takes away the host's launch
-of each one.
+`lift_quads`, `estimate_pose`), with the GT pose or without. The body
+launches the same hand kernels and plain ops on either path; a graph
+only takes away the host's launch of each one.
 
 - The first call of a signature runs the body eagerly on the step's own
   capture stream, so that the caching allocator, cuBLAS and K5's texture
@@ -187,20 +188,23 @@ class StaticArgs:
                 static = [_view(buf, *f) for f in layout[2]]
             self.groups.append((spec, layout, buf, static))
 
-    def load(self, groups):
+    def load(self, groups, around=None):
         """Copy `groups` (the capture call's signature) into the static
-        tensors; returns them as trees."""
+        tensors; returns them as trees. `around(i)`: a context around
+        group i's copy."""
         out = []
-        for g, (spec, layout, buf, static) in zip(groups, self.groups):
+        for i, (g, (spec, layout, buf, static)) in enumerate(
+                zip(groups, self.groups)):
             leaves, _ = flatten(g)
             now = None if layout is None else _shared_layout(leaves)
-            if now is not None and now[1:] == layout[1:]:
-                buf.copy_(torch.empty(0, dtype=torch.uint8,
-                                      device=buf.device).set_(
-                    leaves[0].untyped_storage(), now[0], (now[1],)))
-            else:
-                for s, t in zip(static, leaves):
-                    s.copy_(t)
+            with contextlib.nullcontext() if around is None else around(i):
+                if now is not None and now[1:] == layout[1:]:
+                    buf.copy_(torch.empty(0, dtype=torch.uint8,
+                                          device=buf.device).set_(
+                        leaves[0].untyped_storage(), now[0], (now[1],)))
+                else:
+                    for s, t in zip(static, leaves):
+                        s.copy_(t)
             out.append(unflatten(spec, static))
         return out
 
@@ -253,19 +257,20 @@ class StepGraph:
     """One step callable's graph. `body(*groups, seed, generator)` is the
     step on device tensors: `groups` are trees of tensors, `seed` the
     call's RANSAC seed (or None), `generator` None on the eager path and
-    the graph's own generator inside a capture. `load_spans`: the spans,
-    outermost first, around the copy of a call's arguments to the device
-    (the stereo step's images, which may lie on the host); a step without
-    them takes device tensors only, and a call with a tensor elsewhere
-    runs eagerly. `generator`: the body draws from the graph's own
-    generator. `name` is the step's entry of `cuda_build.GRAPH_STEPS`."""
+    the graph's own generator inside a capture. `load_spans`: for each
+    of the first groups, the spans, outermost first, around its copy to
+    the device (the stereo step's images and GT maps, which may lie on
+    the host); a later group takes device tensors only, and a call with
+    one of its tensors elsewhere runs eagerly. `generator`: the body
+    draws from the graph's own generator. `name` is the step's entry of
+    `cuda_build.GRAPH_STEPS`."""
 
     def __init__(self, name: str, body, device: torch.device,
                  load_spans=(), generator: bool = False):
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.name, self.body, self.device = name, body, device
-        self.load_spans = tuple(load_spans)
+        self.load_spans = tuple(tuple(names) for names in load_spans)
         self.generator = (torch.Generator(device=device) if generator
                           else None)
         self.stream = None
@@ -277,8 +282,9 @@ class StepGraph:
         key = signature(tuple(groups))
         if (not unchanged(PROGRAM)
                 or (self.graph is not None and key != self.key)
-                or (not self.load_spans
-                    and any(d != self.device for _, _, d in key[1]))):
+                or any(t.device != self.device
+                       for g in groups[len(self.load_spans):]
+                       for t in flatten(g)[0])):
             return self._eager(groups, seed)
         if self.graph is not None:
             return self._replay(groups, seed)
@@ -290,20 +296,22 @@ class StepGraph:
     def _count(self, what: str):
         CB.GRAPH_STEPS[self.name][what] += 1
 
-    def _loading(self):
+    def _loading(self, i: int):
+        """The load spans of group i, entered."""
         stack = contextlib.ExitStack()
-        for name in self.load_spans:
+        for name in self.load_spans[i] if i < len(self.load_spans) else ():
             stack.enter_context(span(name))
         return stack
 
     def _args(self, groups):
         """The eager body's arguments: copied to the device where the
         step takes host tensors, as they are where it does not."""
-        if not self.load_spans:
-            return groups
-        with self._loading():
-            return [unflatten(spec, [t.to(self.device) for t in leaves])
-                    for leaves, spec in map(flatten, groups)]
+        out = list(groups)
+        for i in range(min(len(out), len(self.load_spans))):
+            leaves, spec = flatten(out[i])
+            with self._loading(i):
+                out[i] = unflatten(spec, [t.to(self.device) for t in leaves])
+        return out
 
     def _eager(self, groups, seed):
         self._count("eager")
@@ -325,8 +333,7 @@ class StepGraph:
     def _capture(self, groups, seed):
         self._count("capture")
         self.static = StaticArgs(groups, self.device)
-        with self._loading():
-            static = self.static.load(groups)
+        static = self.static.load(groups, self._loading)
 
         def body():
             tree = self.body(*static, seed, self.generator)
@@ -343,8 +350,7 @@ class StepGraph:
 
     def _replay(self, groups, seed):
         self._count("replay")
-        with self._loading():
-            self.static.load(groups)
+        self.static.load(groups, self._loading)
         for k, v in self.launches.items():
             CB.LAUNCHES[k] += v
         return self._run(seed)

@@ -335,6 +335,28 @@ def test_reference_checkpoint_restores_into_port(seq, tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_checkpoint_restores_a_supervised_keyframe(seq, tmp_path):
+    """A GT-supervised keyframe carries the right edges its stereo step
+    read (`FrameResult.right_edges`, an Optional field): they round-trip
+    through the checkpoint, and the restored pipeline goes on."""
+    pipe = PL.VOPipeline(seq.rig, VOConfig(**SMALL), device="cpu",
+                         has_gt_disparity=True)
+    for f in seq.frames[:2]:
+        pipe.run_frame(_u8(f.left), _u8(f.right), disparity=f.disparity)
+    red = pipe.keyframe.right_edges
+    assert red is not None and int(red.count) > 100
+    CKPT.save_pipeline_state(str(tmp_path), pipe)
+    pipe2 = PL.VOPipeline(seq.rig, VOConfig(**SMALL), device="cpu",
+                          has_gt_disparity=True)
+    assert CKPT.restore_pipeline_state(str(tmp_path), pipe2)
+    for a, b in zip(red, pipe2.keyframe.right_edges):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    f = seq.frames[2]
+    fr, tr = pipe2.run_frame(_u8(f.left), _u8(f.right),
+                             disparity=f.disparity)
+    assert tr is not None and len(pipe2.stereo_metrics_log) == 1
+
+
 def _as_numpy_nt(nt):
     """A port NamedTuple of tensors as a namespace of numpy arrays (bf16 as
     float32), which the reference's writers read."""

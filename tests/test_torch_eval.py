@@ -38,6 +38,7 @@ from edge_based_visual_odometry_tpu_torch.models import pipeline as PL
 from edge_based_visual_odometry_tpu_torch.models import stereo_matcher as SM
 from edge_based_visual_odometry_tpu_torch.models import temporal_matcher as TM
 from edge_based_visual_odometry_tpu_torch.models import types as TY
+from edge_based_visual_odometry_tpu_torch.ops import grid as G
 from edge_based_visual_odometry_tpu_torch.ops import image as IMG
 from edge_based_visual_odometry_tpu_torch.ops import patches as P
 
@@ -177,7 +178,25 @@ def test_match_stereo_without_occlusion_map_keeps_the_strip(ref):
     assert float(rows[-1, 1]) > 0.9
 
 
-def test_match_temporal_use_gt_rows(ref):
+def _jax_veridical_window(x, y, valid, attrs, width, height, qx, qy, r,
+                          test):
+    """JAX's veridical query: the first 8 slots a band of the (r + 1)-box
+    on the gather's 8 px bands (the port reads every slot of the r-box,
+    `ops/grid.py::any_in_box`)."""
+    R = r + 1.0
+    grid = G.build_sorted_grid(x, y, valid, width, height, band_h=8,
+                               attrs=attrs)
+    _, attrs, mask = G.query_sorted_grid_attrs(
+        grid, qx, qy, rx=R, ry=R, slots_per_band=8,
+        n_band_window=int(-(-2 * R // grid.band_h)) + 1)
+    return test(attrs, mask).any(1)
+
+
+def test_match_temporal_use_gt_rows(ref, monkeypatch):
+    # held to JAX under JAX's window; the full window is held to a brute
+    # force in tests/test_torch_ops.py and to the plain reference in
+    # tests/test_torch_gt_bench.py
+    monkeypatch.setattr(G, "any_in_box", _jax_veridical_window)
     cfg = _port_cfg(ref)
     rig = TY.rig_arrays_from_rig(ref["seq"].rig, CPU)
     (fd0, _, _, m0, _, _), (fd1, _, _, m1, _, _) = ref["frames"][:2]

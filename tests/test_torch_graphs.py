@@ -11,7 +11,11 @@ steps bit-equal over 9 KITTI-size frames under the every-frame and the
 adaptive keyframe policies, with the same launches a frame; results
 kept across later replays unchanged (the pair step's keyframe result
 among them); a wrapper patched after capture is called; a 40-frame
-loop replays all but its warm-up calls.
+loop replays all but its warm-up calls. The supervised steps (GT maps,
+GT pose): graphed and eager bit-equal over the same frames, stage logs
+included; a captured frame replays both steps and counts its rows and
+map bytes; a 200-frame run's peak memory within 1 GB of a 20-frame
+run's, so no logged row holds a replay's result.
 """
 
 import contextlib
@@ -410,9 +414,11 @@ def _eager_everywhere(monkeypatch):
 def _snapshot(fr, tr):
     """What the frame hands on, copied to the host."""
     keep = [fr.mates, fr.stereo_metrics]
+    if fr.right_edges is not None:
+        keep.append(fr.right_edges)
     if tr is not None:
-        keep += [tr.quads, tr.R, tr.t, tr.inlier_count, tr.n_quads,
-                 tr.success, tr.inlier_ratio]
+        keep += [tr.quads, tr.temporal_metrics, tr.R, tr.t, tr.inlier_count,
+                 tr.n_quads, tr.success, tr.inlier_ratio]
     return [t.detach().cpu().clone() for t in G.flatten(tuple(keep))[0]]
 
 
@@ -420,7 +426,7 @@ def _run(pipe, frames):
     out = []
     for f in frames:
         before = dict(CB.LAUNCHES)
-        fr, tr = pipe.run_frame(*f)
+        fr, tr = pipe.run_frame(*f[:2], **f[2] if len(f) > 2 else {})
         torch.cuda.synchronize()
         out.append((_snapshot(fr, tr),
                     {k: v - before[k] for k, v in CB.LAUNCHES.items()}))
@@ -536,3 +542,102 @@ def test_forty_frames_replay_after_warm_up(dev):
                                              "replay": 38}
     assert CB.GRAPH_STEPS["temporal_step"] == {"eager": 2, "capture": 1,
                                                "replay": 36}
+
+
+@pytest.fixture(scope="module")
+def kitti_gt():
+    """9 frames of the KITTI-size synthetic sequence with their GT: uint8
+    images, then `run_frame`'s GT arguments (the disparity, a
+    non-occlusion map with its left 24 columns occluded, the world ->
+    camera pose) as host arrays."""
+    seq = S.make_sequence(9, 376, 1241)
+    visible = np.full((376, 1241), 255, np.uint8)
+    visible[:, :24] = 0
+    return seq.rig, [(_u8(f.left), _u8(f.right), dict(
+        disparity=f.disparity, occlusion=visible,
+        gt_pose=geom.Pose(f.R.astype(np.float32), f.t.astype(np.float32))))
+        for f in seq.frames]
+
+
+def _supervised(rig, dev):
+    return PL.VOPipeline(rig, VOConfig(), device=dev, has_gt_disparity=True,
+                         use_gt_pose=True)
+
+
+@pytest.mark.gpu
+def test_supervised_steps_bit_equal_to_eager(dev, kitti_gt, monkeypatch):
+    """The GT-supervised stereo step and the GT-pose temporal step, graphed
+    and eager, give the same mates (GT locations, `is_tp`, `gamma_gt`),
+    stage rows, right edges, quads and pose bit for bit, with the same
+    launches a frame, and their stage logs the same numpy rows; the
+    graphed run replays from the third call of each step, the eager one
+    never does."""
+    rig, frames = kitti_gt
+    CB.reset_launch_counts()
+    graphed_pipe = _supervised(rig, dev)
+    graphed = _run(graphed_pipe, frames)
+    steps = {k: dict(v) for k, v in CB.GRAPH_STEPS.items()}
+    pipe = _supervised(rig, dev)
+    _eager_everywhere(monkeypatch)
+    CB.reset_launch_counts()
+    eager = _run(pipe, frames)
+    assert all(c["capture"] == c["replay"] == 0
+               for c in CB.GRAPH_STEPS.values())
+    assert steps == {"stereo_step": {"eager": 1, "capture": 1, "replay": 7},
+                     "temporal_step": {"eager": 1, "capture": 1,
+                                       "replay": 6}}
+    for i, ((a, la), (b, lb)) in enumerate(zip(graphed, eager)):
+        assert la == lb, (i, la, lb)
+        assert len(a) == len(b)
+        for j, (x, y) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(_bytes(x), _bytes(y),
+                                          err_msg=f"frame {i} field {j}")
+    for log in ("stereo_metrics_log", "temporal_metrics_log"):
+        rows_g, rows_e = (getattr(p, log) for p in (graphed_pipe, pipe))
+        assert len(rows_g) == len(rows_e) == (9 if log[0] == "s" else 8)
+        for x, y in zip(rows_g, rows_e):
+            assert isinstance(x, np.ndarray) and x.shape == y.shape
+            np.testing.assert_array_equal(x, y, err_msg=log)
+    assert float(graphed_pipe.stereo_metrics_log[-1][-1, 0]) > 0.5
+
+
+@pytest.mark.gpu
+def test_supervised_frame_replays_and_counts_its_rows(dev, kitti_gt):
+    """Once both steps are captured, a supervised frame replays each step
+    and runs neither eagerly; `EVAL` counts its two stage rows and the
+    bytes of its two maps, and is reset with the launch counts."""
+    rig, frames = kitti_gt
+    pipe = _supervised(rig, dev)
+    for f in frames[:3]:
+        pipe.run_frame(*f[:2], **f[2])
+    CB.reset_launch_counts()
+    assert PL.EVAL == {"stereo_rows": 0, "temporal_rows": 0, "gt_bytes": 0}
+    f = frames[3]
+    pipe.run_frame(*f[:2], **f[2])
+    assert CB.GRAPH_STEPS == {
+        "stereo_step": {"eager": 0, "capture": 0, "replay": 1},
+        "temporal_step": {"eager": 0, "capture": 0, "replay": 1}}
+    assert PL.EVAL == {"stereo_rows": 1, "temporal_rows": 1,
+                       "gt_bytes": 376 * 1241 * 5}
+
+
+@pytest.mark.gpu
+def test_supervised_logs_hold_no_replay_result(dev, kitti_gt):
+    """200 supervised frames (the 9 frames there and back) peak within
+    1 GB of 20: each logged row is copied out of its replay's result
+    (tens of MB at this size), so no result outlives its frame."""
+    rig, frames = kitti_gt
+    order = list(range(9)) + list(range(7, 0, -1))
+    pipe = _supervised(rig, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    peaks = {}
+    for n in range(200):
+        f = frames[order[n % len(order)]]
+        pipe.run_frame(*f[:2], **f[2])
+        if n + 1 in (20, 200):
+            torch.cuda.synchronize()
+            peaks[n + 1] = torch.cuda.max_memory_allocated(dev)
+    assert len(pipe.stereo_metrics_log) == 200
+    assert len(pipe.temporal_metrics_log) == 199
+    assert peaks[200] - peaks[20] < 1 << 30, peaks

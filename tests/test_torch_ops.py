@@ -156,6 +156,46 @@ def test_grid_query_matches(grid_case):
     assert valid[ti.numpy()[tm.numpy()]].all()
 
 
+@pytest.mark.parametrize("r", [1.0, 2.0])
+def test_any_in_box_reads_every_entry_in_reach(r):
+    """An edge at every pixel of the 2x interpolation grid, each moved up
+    to the subpixel fit's reach: the densest detection there is. The
+    answer equals a brute-force test of every entry."""
+    g = np.random.default_rng(int(r))
+    W, H = 48, 40
+    fi, fj = np.mgrid[0:2 * H, 0:2 * W].reshape(2, -1).astype(np.float64)
+    ang = g.uniform(0, 2 * np.pi, fi.size)
+    rad = G.EDGE_REACH_PX * np.sqrt(g.random(fi.size)) * 0.999
+    x = ((fj - 1) / 2 + rad * np.cos(ang)).astype(np.float32)
+    y = ((fi - 1) / 2 + rad * np.sin(ang)).astype(np.float32)
+    keep = (x > 2) & (x < W - 2) & (y > 2) & (y < H - 2)
+    x, y = x[keep], y[keep]
+    flag = (g.random(x.size) < 0.02).astype(np.float32)
+    valid = torch.ones(x.size, dtype=bool)
+    attrs = t(np.stack([x, y, flag], -1))
+    qx = g.uniform(4, W - 4, 300).astype(np.float32)
+    qy = g.uniform(4, H - 4, 300).astype(np.float32)
+
+    def test(at, mask):
+        d = torch.sqrt((at[0] - t(qx)[:, None]) ** 2
+                       + (at[1] - t(qy)[:, None]) ** 2)
+        return mask & (d < r) & (at[2] > 0)
+
+    got = G.any_in_box(t(x), t(y), valid, attrs, W, H, t(qx), t(qy), r,
+                       test).numpy()
+    d = np.hypot(x[None] - qx[:, None], y[None] - qy[:, None])
+    want = ((d < r) & (flag[None] > 0)).any(1)
+    assert want.sum() > 20
+    np.testing.assert_array_equal(got, want)
+    # a window of a few slots a band misses entries here
+    grid = G.build_sorted_grid(t(x), t(y), valid, W, H, band_h=8,
+                               attrs=attrs)
+    _, at, mask = G.query_sorted_grid_attrs(grid, t(qx), t(qy), rx=r, ry=r,
+                                            slots_per_band=8,
+                                            n_band_window=2)
+    assert (want & ~test(at, mask).any(1).numpy()).any()
+
+
 @pytest.mark.parametrize("priority", [False, True])
 @pytest.mark.parametrize("capacity", [4, 16])
 def test_compaction_matches_with_ties(priority, capacity):

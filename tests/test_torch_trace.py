@@ -8,7 +8,9 @@ read runs) and a 2-keyframe windowed BA, and one `WindowBA.run` on
 
 - with spans on under `torch.profiler`, every span of PERF.md's table
   is recorded once a frame where its stage runs, inside the span the
-  table names as its parent (stage inside step inside frame);
+  table names as its parent (stage inside step inside frame); the
+  supervised run (GT maps, GT pose) records the maps' upload and the
+  stage rows' hand-off too;
 - mates, quads and poses are bit-identical with spans on and off;
 - with spans off, `span()` makes no profiler call and a profiled frame
   holds no span;
@@ -56,6 +58,9 @@ DISTORTED_ONLY = ("undistort",)
 # spans of the sharded pair step, which no frame runs
 # (tests/test_torch_parallel.py holds them)
 PAIR_ONLY = ("pair_step", "pair.", "wait.pair_count")
+# spans of the supervised modes only: the GT maps' upload, the stage
+# rows' hand-off to the logs
+GT_ONLY = ("gt_upload", "wait.gt_upload", "eval.rows")
 
 
 def documented():
@@ -147,7 +152,8 @@ def test_documented_table_is_well_formed():
     assert all(p is None or p in doc for p in doc.values())
     waits = {n for n in doc if n.startswith("wait.")}
     assert waits == {"wait.success", "wait.keyframe", "wait.upload",
-                     "wait.ba_sync", "wait.ba_readback", "wait.pair_count"}
+                     "wait.ba_sync", "wait.ba_readback", "wait.pair_count",
+                     "wait.gt_upload"}
 
 
 def test_every_span_once_a_frame_where_its_stage_runs(runs):
@@ -165,9 +171,44 @@ def test_every_span_once_a_frame_where_its_stage_runs(runs):
         assert len(names) == len(set(names)), f"frame {k}: {names}"
         expected = {n for n in doc
                     if (k > 0 or not n.startswith(TEMPORAL_ONLY))
-                    and not n.startswith(DISTORTED_ONLY + PAIR_ONLY)}
+                    and not n.startswith(DISTORTED_ONLY + PAIR_ONLY
+                                         + GT_ONLY)}
         assert set(names) == expected, (
             k, sorted(set(names) ^ expected))
+
+
+def test_supervised_frames_record_the_gt_spans(tmp_path):
+    """A supervised run (GT disparity and non-occlusion maps, GT poses)
+    records, once a frame, the maps' upload inside the stereo step and
+    the stage rows' hand-off inside the frame, beside the plain run's
+    spans (no windowed BA or keyframe reads here); every span nests as
+    the table says."""
+    seq = S.make_sequence(3, 120, 160)
+    visible = np.full((120, 160), 255, np.uint8)
+    pipe = PL.VOPipeline(seq.rig, VOConfig(**SMALL), device="cpu",
+                         has_gt_disparity=True, use_gt_pose=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with T.spans_on():
+            for f in seq.frames:
+                pipe.run_frame(_u8(f.left), _u8(f.right), f.disparity,
+                               GEO.Pose(f.R.astype(np.float32),
+                                        f.t.astype(np.float32)), visible)
+    spans = _trace_spans(prof, tmp_path, "supervised")
+    doc = documented()
+    parents = _parents(spans)
+    for (name, _, _), p in zip(spans, parents):
+        assert (None if p is None else spans[p][0]) == doc[name], name
+    frames = [s for s in spans if s[0] == "frame"]
+    assert len(frames) == 3
+    for k, (_, a, b) in enumerate(frames):
+        names = [s[0] for s in spans if a <= s[1] and s[2] <= b]
+        assert len(names) == len(set(names)), f"frame {k}: {names}"
+        expected = {n for n in doc
+                    if (k > 0 or not n.startswith(TEMPORAL_ONLY))
+                    and not n.startswith(DISTORTED_ONLY + PAIR_ONLY
+                                         + ("wait.keyframe", "window_ba",
+                                            "ba.", "wait.ba_"))}
+        assert set(names) == expected, (k, sorted(set(names) ^ expected))
 
 
 def test_spans_nest_as_documented(runs):
